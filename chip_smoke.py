@@ -1,0 +1,529 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases (any mismatch fails the run with a non-zero exit):
+
+1. device: the card's name and power limit; build the CUDA kernels.
+2. kernels vs twins: every kernel (K1 point_add with and without index
+   tensors, K2 point_double, K3 horner; G1 and G2) against its plain
+   PyTorch version on the same card tensors, bit for bit: at 2^14 points
+   with identity, P + P and P + (-P) lanes, at the K2/K3 shapes of the
+   fixture prove, and at the shapes a 2^20 MSM gives each kernel, where
+   both are also timed (CUDA events).
+3. prove (the main path): the committed 729-constraint MiMC fixture, two
+   proofs from one ProverContext (the key stays on the card); each proof's
+   JSON must equal the reference prover's; every kernel must have launched.
+4. full size: G1 and G2 MSMs of 2^20 points (exact class-sum oracle,
+   points/s; each MSM must launch K1, K2 and K3 of its group and no
+   other) and the witness-map transform chain at m = 2^21 (spot
+   evaluations against host Horner sums).  Launch counts are reset before
+   and read after each path.
+
+The last lines are a JSON ``kernels`` record, the nvidia-smi line, and
+``{"ok": true, "device": {...}}``.  Without CUDA the script fails.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from ethsnarks_tpu_torch import bn254
+from ethsnarks_tpu_torch.field import CURVE_ORDER, SNARK_SCALAR_FIELD
+from ethsnarks_tpu_torch.groth16 import ProverContext
+from ethsnarks_tpu_torch.ops import _build, curve, kernels, msm
+from ethsnarks_tpu_torch.ops.fp import Fq, Fr, words_to_h16, \
+    ints_to_words_np, words_to_ints, h16_to_words
+from ethsnarks_tpu_torch.ops.ntt import NttDomain
+from ethsnarks_tpu_torch.qap import h_coefficients
+from ethsnarks_tpu_torch.serialization import read_pk_binary, \
+    r1cs_from_dict, witness_from_json
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+FIXTURE = os.path.join(ROOT, "ethsnarks_tpu_torch", "fixtures",
+                       "mimc_chain_10")
+SEED = 12345
+DEV = torch.device("cuda")
+CHECK_POINTS = 1 << 14          # points per kernel-vs-twin comparison
+TIME_LANES = 1 << 21            # K1 timing lanes (gathers from 2^20 points)
+
+# Card limits for the bounds (NVIDIA H100 SXM data sheet): 3.35 TB/s of
+# HBM; 32-bit integer multiply-adds at 64 lanes per SM per clock (half the
+# 128 float32 lanes behind the 67 TFLOP/s float32 rate) x 132 SMs x
+# 1.98 GHz = 16.7e12 IMAD/s.  A 32x32 -> 64-bit product counts as two IMADs,
+# a low 32-bit product as one.
+HBM_BYTES_PER_S = 3.35e12
+IMAD_PER_S = 64 * 132 * 1.98e9
+# 8x8-word CIOS Montgomery product (csrc/field.cuh): 64 wide products of
+# the operands, 8 low products m = t[0] * q', 64 wide products m * q[j].
+# A squaring needs 36 wide operand products (28 off-diagonal, doubled, and
+# 8 diagonal).
+FQ_MUL_IMAD = 2 * 64 + 8 + 2 * 64
+FQ_SQR_IMAD = 2 * 36 + 8 + 2 * 64
+# IMADs per point op, RCB15 algorithms 7 and 9 (csrc/curve.cuh).  G1: 12
+# products per add; 6 products and the squarings Y^2, Z^2 per double (3b = 9
+# is additions).  G2: an Fq2 product is 3 Fq products (Karatsuba), an Fq2
+# squaring 2 (complex squaring); 14 Fq2 products per add (with the two 3b
+# products), 7 products and 2 squarings per double.
+OP_IMAD = {("add", False): 12 * FQ_MUL_IMAD,
+           ("double", False): 6 * FQ_MUL_IMAD + 2 * FQ_SQR_IMAD,
+           ("add", True): 14 * 3 * FQ_MUL_IMAD,
+           ("double", True): (7 * 3 + 2 * 2) * FQ_MUL_IMAD}
+
+
+def log(*args):
+    print(*args, flush=True)
+
+
+def fail(msg):
+    raise SystemExit("FAIL: " + msg)
+
+
+def cuda_ms(fn, reps=5):
+    """(mean CUDA-event ms of reps calls after a warm-up, the warm-up's
+    result)."""
+    out = fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps, out
+
+
+def bound_ms(n_bytes, n_imad):
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_imad / IMAD_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
+
+
+def point_bytes(g2):
+    return 192 if g2 else 96
+
+
+# ---------------------------------------------------------------- inputs
+
+def base_points(g2, count=256):
+    gen = bn254.G2_GEN if g2 else bn254.G1_GEN
+    pts = [bn254.multiply(gen, j + 1) for j in range(count)]
+    conv = curve.g2_to_tensor if g2 else curve.g1_to_tensor
+    return pts, conv(pts, DEV)
+
+
+def random_fq(n, rng):
+    w = rng.integers(0, 1 << 32, size=(n, 8), dtype=np.uint64).astype(
+        np.uint32)
+    w[:, 7] &= 0x0FFFFFFF                      # < 2^252 < q
+    return words_to_h16(torch.from_numpy(w.view(np.int32)).to(DEV))
+
+
+def rescale(P, lam, g2):
+    """(X, Y, Z) -> (lam X, lam Y, lam Z): the same points, other
+    projective coordinates."""
+    lam = lam[..., None] if g2 else lam
+    return curve.pack([Fq.mul(c, lam) for c in curve.unpack(P)])
+
+
+def negate(P):
+    x, y, z = curve.unpack(P)
+    return curve.pack([x, Fq.neg(y), z])
+
+
+def test_points(base, n, rng, g2):
+    """n projective points: random multiples of the generator with random
+    Z, and lanes that stress completeness: Q = P (same coordinates),
+    Q = P (other coordinates), Q = -P, identities on either side."""
+    P = rescale(base[torch.from_numpy(rng.integers(0, len(base), n)).to(DEV)],
+                random_fq(n, rng), g2)
+    Q = rescale(base[torch.from_numpy(rng.integers(0, len(base), n)).to(DEV)],
+                random_fq(n, rng), g2)
+    Q[0:64] = P[0:64]
+    Q[64:128] = rescale(P[64:128], random_fq(64, rng), g2)
+    Q[128:192] = negate(P[128:192])
+    ident = curve.identity(64, g2, DEV)
+    P[192:256] = ident
+    Q[256:320] = ident
+    P[320:384] = ident
+    Q[320:384] = ident
+    return P.contiguous(), Q.contiguous()
+
+
+def same(name, got, want):
+    """Max |kernel - plain| over the int32 words; fails unless 0."""
+    if got.shape != want.shape:
+        fail("%s: shapes %s and %s" % (name, tuple(got.shape),
+                                       tuple(want.shape)))
+    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+    if err != 0:
+        fail("%s: kernel and plain version differ (max |err| %d)"
+             % (name, err))
+    log("  %-34s bit-exact over %d points" % (name, got.shape[0]))
+    return err
+
+
+# ---------------------------------------------------------------- phase 2
+
+def phase_kernels(rng, fixture_cs):
+    """Every kernel against its plain twin, bit for bit: on 2^14 random
+    lanes with completeness edge cases, at the K2/K3 shapes of the fixture
+    prove's MSMs (window widths ``fixture_cs``), and on the 2^20-MSM shapes
+    at which each kernel is timed."""
+    log("== phase 2: kernels vs plain twins")
+    rec = {}
+    c = msm.best_c(1 << 20)
+    nw = msm.n_windows(c)
+    for g2 in (False, True):
+        tag = "g2" if g2 else "g1"
+        k_add, k_dbl, k_hor = (kernels.POINT_ADD[g2], kernels.POINT_DOUBLE[g2],
+                               kernels.HORNER[g2])
+        errs = {k_add: [], k_dbl: [], k_hor: []}
+        _, base = base_points(g2)
+        n = CHECK_POINTS
+        P, Q = test_points(base, n, rng, g2)
+        errs[k_add].append(same(
+            "K1 point_add_%s" % tag, kernels.point_add(P, Q, g2=g2),
+            curve.point_add_plain(P, Q, g2=g2)))
+        ia = torch.from_numpy(rng.integers(0, n, n)).to(DEV)
+        ib = torch.from_numpy(rng.integers(-1, n, n)).to(DEV)
+        ib[:512] = -1
+        errs[k_add].append(same(
+            "K1 point_add_%s (indices)" % tag,
+            kernels.point_add(P, Q, ia, ib, g2),
+            curve.point_add_plain(P, Q, ia, ib, g2)))
+        errs[k_dbl].append(same(
+            "K2 point_double_%s" % tag, kernels.point_double(P, g2),
+            curve.point_double_plain(P, g2)))
+        for n_win, c_test in ((2, 5), (4, 3)):
+            W = P.reshape((n_win, n // n_win) + P.shape[1:]).contiguous()
+            errs[k_hor].append(same(
+                "K3 horner_%s (%d windows, c=%d)" % (tag, n_win, c_test),
+                kernels.horner(W, c_test, g2),
+                curve.horner_plain(W, c_test, g2)))
+        # the fixture prove's shapes: K2 on the n_windows pairfold
+        # accumulators, K3 on one accumulator over n_windows windows
+        for cf in fixture_cs:
+            nwf = msm.n_windows(cf)
+            errs[k_dbl].append(same(
+                "K2 point_double_%s (%d lanes)" % (tag, nwf),
+                kernels.point_double(P[:nwf].contiguous(), g2),
+                curve.point_double_plain(P[:nwf].contiguous(), g2)))
+            W = P[:nwf].reshape((nwf, 1) + P.shape[1:]).contiguous()
+            errs[k_hor].append(same(
+                "K3 horner_%s (%d windows x 1, c=%d)" % (tag, nwf, cf),
+                kernels.horner(W, cf, g2), curve.horner_plain(W, cf, g2)))
+
+        # the shapes of a 2^20-point MSM, timed and compared: K1's first
+        # segmented round gathers pairs from the 2^20-point table (8M lanes
+        # there, timed at TIME_LANES), K2 doubles the n_windows pairfold
+        # accumulators, K3 combines the n_windows window sums
+        table = base[torch.from_numpy(rng.integers(0, 256, 1 << 20)).to(
+            DEV)].contiguous()
+        lanes = TIME_LANES
+        ia = torch.from_numpy(rng.integers(0, 1 << 20, lanes)).to(DEV)
+        ib = torch.from_numpy(rng.integers(0, 1 << 20, lanes)).to(DEV)
+        pb = point_bytes(g2)
+        acc = table[:nw].contiguous()
+        wins = table[:nw].reshape((nw, 1) + table.shape[1:]).contiguous()
+        shapes = {
+            k_add: (
+                lambda: kernels.point_add(table, table, ia, ib, g2),
+                lambda: curve.point_add_plain(table, table, ia, ib, g2),
+                table.numel() * 4 + 16 * lanes + pb * lanes,
+                lanes * OP_IMAD[("add", g2)],
+                "%d lanes from a 2^20 table" % lanes),
+            k_dbl: (
+                lambda: kernels.point_double(acc, g2),
+                lambda: curve.point_double_plain(acc, g2),
+                2 * pb * nw, nw * OP_IMAD[("double", g2)],
+                "%d lanes" % nw),
+            k_hor: (
+                lambda: kernels.horner(wins, c, g2),
+                lambda: curve.horner_plain(wins, c, g2),
+                pb * (nw + 1),
+                (nw - 1) * (c * OP_IMAD[("double", g2)]
+                            + OP_IMAD[("add", g2)]),
+                "%d windows x 1, c=%d" % (nw, c)),
+        }
+        for k, (kfn, pfn, n_bytes, n_imad, shape) in shapes.items():
+            ms, got = cuda_ms(kfn)
+            plain_ms, want = cuda_ms(pfn, reps=1)
+            errs[k].append(same("%s (%s)" % (k.name, shape), got, want))
+            del got, want
+            b_ms, b_by = bound_ms(n_bytes, n_imad)
+            rec[k.name] = dict(max_abs_err=max(errs[k]), ms=ms,
+                               plain_ms=plain_ms, bound_ms=b_ms,
+                               bound_by=b_by, shape=shape)
+            log("  %-16s %-30s kernel %10.4f ms  plain %10.2f ms  "
+                "bound %8.4f ms (%s)" % (k.name, shape, ms, plain_ms, b_ms,
+                                         b_by))
+        del table, ia, ib
+        torch.cuda.empty_cache()
+    return rec
+
+
+# ---------------------------------------------------------------- phase 3
+
+def fixture_context():
+    """The fixture's ProverContext on the card (key uploaded once)."""
+    with open(os.path.join(FIXTURE, "r1cs.json")) as fh:
+        cs = r1cs_from_dict(json.load(fh))
+    t0 = time.perf_counter()
+    pk = read_pk_binary(os.path.join(FIXTURE, "pk.bin"), DEV)
+    ctx = ProverContext(pk, cs, DEV)
+    log("  fixture key load + context: %.3f s (m = %d, c = %s)"
+        % (time.perf_counter() - t0, ctx.qap.domain_size, ctx.c))
+    return ctx
+
+
+def launch_counts():
+    return {k.name: k.launches for k in kernels.ALL}
+
+
+def phase_prove(ctx):
+    log("== phase 3: prove the fixture (main path)")
+    witness = witness_from_json(os.path.join(FIXTURE, "witness.json"))
+    with open(os.path.join(FIXTURE, "proof.json")) as fh:
+        expected = fh.read()
+    kernels.reset_counts()
+    profiles = []
+    for rep in range(2):
+        t0 = time.perf_counter()
+        proof = ctx.prove(witness)
+        dt = time.perf_counter() - t0
+        if proof.to_json() != expected:
+            fail("proof %d JSON differs from the reference proof" % rep)
+        profiles.append(ctx.last_profile)
+        log("  proof %d: %.3f s, JSON equal to the reference; phases %s"
+            % (rep, dt, json.dumps({k: round(v, 4) for k, v in
+                                    ctx.last_profile.items()})))
+    launches = launch_counts()
+    log("  launches over the two proofs: %s" % json.dumps(launches))
+    for name, count in launches.items():
+        if count == 0:
+            fail("kernel %s was not launched by the prove" % name)
+    return launches, profiles
+
+
+# ---------------------------------------------------------------- phase 4
+
+def random_scalars(n, rng):
+    """Uniform-ish scalars in [0, r): 256-bit draws reduced mod r."""
+    words = rng.integers(0, 1 << 32, size=(n, 8), dtype=np.uint64)
+    vals = np.zeros(n, dtype=object)
+    for k in range(7, -1, -1):
+        vals = (vals << 32) | words[:, k].astype(object)
+    return vals % CURVE_ORDER
+
+
+def phase_msm(g2, rng, log_n=20, reps=3):
+    tag = "G2" if g2 else "G1"
+    n = 1 << log_n
+    t0 = time.perf_counter()
+    base_host, base = base_points(g2)
+    points = base.repeat((n // 256,) + (1,) * (base.dim() - 1)).contiguous()
+    scalars = random_scalars(n, rng)
+    words = torch.from_numpy(ints_to_words_np(scalars)).to(DEV)
+    want = None
+    for j in range(256):
+        cls = int(scalars[j::256].sum()) % CURVE_ORDER
+        want = bn254.add(want, bn254.multiply(base_host[j], cls))
+    log("  %s set-up (points, scalars, class-sum oracle): %.2f s"
+        % (tag, time.perf_counter() - t0))
+    c = msm.best_c(n)
+    run = msm.msm_g2 if g2 else msm.msm_g1
+    times, launches = [], []
+    for rep in range(reps + 1):
+        kernels.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        digits = msm.window_digits(words, c)
+        got = run(points, digits, c)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        launches.append(launch_counts())
+        if got != want:
+            fail("%s MSM at 2^%d differs from the class-sum oracle"
+                 % (tag, log_n))
+    if any(cnt != launches[0] for cnt in launches):
+        fail("%s MSM: launch counts differ between runs: %s" % (tag,
+                                                                launches))
+    for k in kernels.ALL:
+        ran = launches[0][k.name] > 0
+        if ran != (k.name.endswith("_g2") == g2):
+            fail("%s MSM: kernel %s launched %d times" % (
+                tag, k.name, launches[0][k.name]))
+    best = min(times[1:])
+    log("  %s MSM 2^%d (c=%d): exact; times %s s; min %.4f s = %.1f "
+        "points/s; launches per MSM %s" % (
+            tag, log_n, c, [round(t, 4) for t in times], best, n / best,
+            json.dumps(launches[0])))
+    stages = msm_stages(points, words, c, g2)
+    log("  %s MSM stages (s, synchronised): %s" % (tag, json.dumps(stages)))
+    return {"n": n, "c": c, "seconds": times, "points_per_s": n / best,
+            "launches": launches[0], "stages": stages}
+
+
+def msm_stages(points, words, c, g2):
+    """One more MSM, synchronised after each stage of ops.msm.msm_tensor."""
+    marks = []
+
+    def mark(name):
+        torch.cuda.synchronize()
+        marks.append((name, time.perf_counter()))
+
+    k1, k2 = kernels.POINT_ADD[g2], kernels.POINT_DOUBLE[g2]
+    mark("start")
+    digits = msm.window_digits(words, c)
+    mark("digits")
+    msm.check_digit_contract(digits, c)
+    mark("contract")
+    keys, src = msm.sorted_keys(digits)
+    mark("sort")
+    k1_before = k1.launches
+    run_keys, sums = msm.bucket_sums(points, keys, src, g2)
+    mark("bucket_sums")
+    rounds = k1.launches - k1_before
+    k1_before, k2_before = k1.launches, k2.launches
+    wins = msm.window_sums(run_keys, sums, digits.shape[0], c, g2)
+    mark("pairfold")
+    pairfold = {k1.name: k1.launches - k1_before,
+                k2.name: k2.launches - k2_before}
+    res = msm.combine_windows(wins, c, g2)
+    mark("horner")
+    (curve.tensor_to_g2 if g2 else curve.tensor_to_g1)(res)
+    mark("to_host")
+    out = {name: t - marks[i][1] for i, (name, t) in enumerate(marks[1:])}
+    out.update(keys=int(keys.shape[0]), buckets=int(run_keys.shape[0]),
+               bucket_rounds=rounds, pairfold_launches=pairfold)
+    return out
+
+
+def phase_transform(rng, log_m=21, n_spot=2):
+    m = 1 << log_m
+    r = SNARK_SCALAR_FIELD
+    t0 = time.perf_counter()
+    dom = NttDomain(m, DEV)
+    torch.cuda.synchronize()
+    t_dom = time.perf_counter() - t0
+    vals = random_fq(3 * m, rng)                # canonical < 2^252 < r
+    abc = Fr.to_mont(vals).reshape(16, 3, m)
+    kernels.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    h = h_coefficients(dom, abc)
+    torch.cuda.synchronize()
+    t_chain = time.perf_counter() - t0
+    launches = launch_counts()
+    x3 = abc.reshape(16, 3 * m)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dom.dif(x3, dom.tw_inv)
+    torch.cuda.synchronize()
+    t_dif = time.perf_counter() - t0
+    log("  transform chain m = 2^%d: %.3f s, of which one batched 3-vector "
+        "DIF takes %.3f s (domain constants %.3f s)"
+        % (log_m, t_chain, t_dif, t_dom))
+    # spot checks: h(x) by Horner over the coefficients (natural order =
+    # bit-reversed storage read through the involution) against
+    # (A(x) B(x) - C(x)) / Z(x) at coset points x = g w^j, A(x) from the
+    # evaluations by the Lagrange form sum_i a_i w^i (x^m - 1) / (m (x - w^i))
+    t0 = time.perf_counter()
+    coeffs = np.array(words_to_ints(h16_to_words(
+        Fr.from_mont(h)[:, dom.bitrev])), dtype=object)
+    ev = [np.array(words_to_ints(h16_to_words(vals[:, k * m:(k + 1) * m])),
+                   dtype=object) for k in range(3)]
+    w_pows = np.array(words_to_ints(h16_to_words(Fr.from_mont(
+        dom.tw_fwd))), dtype=object)                     # w^0 .. w^(m/2-1)
+    w_half = pow(dom.omega, m // 2, r)
+    w_pows = np.concatenate([w_pows, w_pows * w_half % r])
+    g = dom.coset_gen
+    for j in rng.integers(0, m, n_spot):
+        x = g * pow(dom.omega, int(j), r) % r
+        acc = 0
+        for cf in coeffs[::-1]:
+            acc = (acc * x + cf) % r
+        zx = (pow(x, m, r) - 1) % r
+        diff = (x - w_pows) % r
+        pref = np.empty(m + 1, dtype=object)
+        pref[0] = 1
+        for i in range(m):
+            pref[i + 1] = pref[i] * diff[i] % r
+        inv = pow(int(pref[m]), -1, r)
+        inv_diff = np.empty(m, dtype=object)
+        for i in range(m - 1, -1, -1):
+            inv_diff[i] = inv * pref[i] % r
+            inv = inv * diff[i] % r
+        lag = w_pows * inv_diff % r
+        scale = zx * pow(m, -1, r) % r
+        a, b, cc = (int((e * lag % r).sum()) * scale % r for e in ev)
+        want = (a * b - cc) * pow(zx, -1, r) % r
+        if acc != want:
+            fail("transform chain: h(g w^%d) differs from (A B - C) / Z"
+                 % j)
+    log("  %d coset spot evaluations exact (%.1f s on the host)"
+        % (n_spot, time.perf_counter() - t0))
+    return {"m": m, "seconds": t_chain, "dif3_seconds": t_dif,
+            "domain_seconds": t_dom, "launches": launches}
+
+
+# ---------------------------------------------------------------- main
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    t_start = time.perf_counter()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    log("== phase 1: device %s (%s); torch %s, CUDA %s"
+        % (torch.cuda.get_device_name(0), smi, torch.__version__,
+           torch.version.cuda))
+    t0 = time.perf_counter()
+    _build.build()
+    log("  kernels built in %.1f s; compiler report:" % (
+        time.perf_counter() - t0))
+    for line in _build.build_log().splitlines():
+        if "Used" in line or "stack frame" in line or "Compiling entry" in line:
+            log("    " + line.strip())
+
+    rng = np.random.default_rng(SEED)
+    ctx = fixture_context()
+    rec = phase_kernels(rng, sorted(set(ctx.c.values())))
+    launches, profiles = phase_prove(ctx)
+    log("== phase 4: full size")
+    full = {"msm_g1": phase_msm(False, rng), "msm_g2": phase_msm(True, rng),
+            "transform": phase_transform(rng)}
+    log("  full-size results: %s" % json.dumps(full))
+    log("  prove profiles: %s" % json.dumps(profiles))
+
+    out = []
+    for k in kernels.ALL:
+        r = rec[k.name]
+        out.append({"name": k.name, "route": k.route, "source": k.source,
+                    "replaces": k.replaces, "launches": launches[k.name],
+                    "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                    "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                    "bound_by": r["bound_by"], "library_ms": None,
+                    "shape": r["shape"]})
+    log("total %.1f s" % (time.perf_counter() - t_start))
+    print(json.dumps({"kernels": out}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

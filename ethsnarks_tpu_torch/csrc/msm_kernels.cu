@@ -1,0 +1,116 @@
+// Hopper (sm_90a) point kernels of the Pippenger MSM.
+//
+// Three templates, each instantiated for G1 (Fq) and G2 (Fq2), replace the
+// eight Pallas kernels of the TPU's dense red-core MSM:
+//
+//   K1 point_add    <- ethsnarks_tpu/ops/msm_red.py _g1_add_kernel_red (:171)
+//                      and _g2_add_kernel_red (:193)
+//   K2 point_double <- _g1_double_kernel_red (:249), _g2_double_kernel_red (:268)
+//   K3 horner       <- _k_horner_all_red (:412), _k_horner_all_red_g2 (:515),
+//                      _k_double_n_add_red (:454), _k_double_n_add_red_g2 (:481)
+//                      (2^n P + Q is horner over the two windows [Q, P], c = n)
+//
+// What bounds them on this card: integer multiplies.  A G1 add is 12 Fq
+// products; each is 128 wide (32x32 -> 64, two IMADs) and 8 low (one IMAD)
+// products, 264 IMADs, 3168 per add (G1 double 2000 with its two
+// squarings at 208; G2 add 11088; G2 double 6600 counting its two Fq2
+// squarings at 2 Fq products, where these kernels spend 3), against
+// 96 + 96 read and 96 written bytes per G1 add: at ~16.7e12 32-bit IMAD/s
+// and 3.35 TB/s the multiplies take about twice as long as the bytes.
+// The design follows:
+// one thread per output point keeps the whole formula in registers (no
+// shared memory, no intermediate ever reaches device memory), points move
+// as 16-byte vector loads, and K1 gathers its operands through optional
+// index tensors so the MSM's segmented bucket sums and the pairfold never
+// materialise gathered copies.  No tensor cores: the work is 32-bit
+// integer carries, not a matrix product.
+//
+// Every launcher returns cudaGetLastError() after the launch; the Python
+// wrapper raises on a non-zero value.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "curve.cuh"
+
+namespace esn {
+
+constexpr int kThreads = 128;
+
+// out[i] = P[ia[i]] + Q[ib[i]]; ia == nullptr means i, ib == nullptr means
+// i; ib[i] < 0 passes P[ia[i]] through unchanged.
+template <class F>
+__global__ void __launch_bounds__(kThreads)
+k_point_add(const uint32_t* __restrict__ P, const uint32_t* __restrict__ Q,
+            const int64_t* __restrict__ ia, const int64_t* __restrict__ ib,
+            uint32_t* __restrict__ out, int n) {
+    int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    long long a = ia ? ia[i] : i;
+    long long b = ib ? ib[i] : i;
+    point<F> p = load_point<point<F>>(P, a);
+    if (b >= 0) p = rcb_add(p, load_point<point<F>>(Q, b));
+    store_point(out, i, p);
+}
+
+template <class F>
+__global__ void __launch_bounds__(kThreads)
+k_point_double(const uint32_t* __restrict__ P, uint32_t* __restrict__ out, int n) {
+    int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    store_point(out, i, rcb_double(load_point<point<F>>(P, i)));
+}
+
+// W: (n_win, batch) points, window 0 least significant.  One thread per
+// accumulator: acc = W[n_win-1]; for w = n_win-2 .. 0: acc = 2^c acc + W[w].
+template <class F>
+__global__ void __launch_bounds__(kThreads)
+k_horner(const uint32_t* __restrict__ W, uint32_t* __restrict__ out,
+         int n_win, int batch, int c) {
+    int j = blockIdx.x * blockDim.x + threadIdx.x;
+    if (j >= batch) return;
+    point<F> acc = load_point<point<F>>(W, (long long)(n_win - 1) * batch + j);
+    for (int w = n_win - 2; w >= 0; w--) {
+        for (int k = 0; k < c; k++) acc = rcb_double(acc);
+        acc = rcb_add(acc, load_point<point<F>>(W, (long long)w * batch + j));
+    }
+    store_point(out, j, acc);
+}
+
+inline int blocks(int n) { return (n + kThreads - 1) / kThreads; }
+
+}  // namespace esn
+
+using esn::fq;
+using esn::fq2;
+
+#define ESN_LAUNCHERS(SUFFIX, F)                                                \
+    extern "C" int esn_point_add_##SUFFIX(const void* P, const void* Q,         \
+                                          const void* ia, const void* ib,       \
+                                          void* out, int n, void* stream) {     \
+        if (n > 0)                                                              \
+            esn::k_point_add<F><<<esn::blocks(n), esn::kThreads, 0,             \
+                                  (cudaStream_t)stream>>>(                      \
+                (const uint32_t*)P, (const uint32_t*)Q, (const int64_t*)ia,     \
+                (const int64_t*)ib, (uint32_t*)out, n);                         \
+        return (int)cudaGetLastError();                                         \
+    }                                                                           \
+    extern "C" int esn_point_double_##SUFFIX(const void* P, void* out, int n,   \
+                                             void* stream) {                    \
+        if (n > 0)                                                              \
+            esn::k_point_double<F><<<esn::blocks(n), esn::kThreads, 0,          \
+                                     (cudaStream_t)stream>>>(                   \
+                (const uint32_t*)P, (uint32_t*)out, n);                         \
+        return (int)cudaGetLastError();                                         \
+    }                                                                           \
+    extern "C" int esn_horner_##SUFFIX(const void* W, void* out, int n_win,     \
+                                       int batch, int c, void* stream) {        \
+        if (batch > 0)                                                          \
+            esn::k_horner<F><<<esn::blocks(batch), esn::kThreads, 0,            \
+                               (cudaStream_t)stream>>>(                         \
+                (const uint32_t*)W, (uint32_t*)out, n_win, batch, c);           \
+        return (int)cudaGetLastError();                                         \
+    }
+
+ESN_LAUNCHERS(g1, fq)
+ESN_LAUNCHERS(g2, fq2)

@@ -1,0 +1,158 @@
+"""One wrapper per CUDA kernel of ``csrc/msm_kernels.cu``.
+
+A wrapper checks dtype, shape and contiguity, then dispatches on where the
+tensors lie: on the CPU it runs the kernel's plain PyTorch twin
+(:mod:`.curve`), on a CUDA device it launches the kernel on the current
+stream, raising if the launch reports an error.  There is no fallback from
+the card to the twin.  Each kernel keeps a launch count (``.launches``),
+raised by one per launch on the card and nowhere else.
+"""
+
+import torch
+
+from . import curve
+from ._build import function
+
+SOURCE = "ethsnarks_tpu_torch/csrc/msm_kernels.cu"
+
+
+class Kernel(object):
+    """Record of one kernel instantiation: its C entry point, the Pallas
+    kernel(s) it replaces, and its launch count."""
+
+    def __init__(self, name, entry, replaces):
+        self.name = name
+        self.entry = entry
+        self.replaces = replaces
+        self.route = "cuda"
+        self.source = SOURCE
+        self.launches = 0
+
+    def launch(self, *args):
+        rc = function(self.entry)(*args)
+        if rc != 0:
+            raise RuntimeError("%s: CUDA error %d at launch" % (self.name, rc))
+        self.launches += 1
+
+
+_MSM_RED = "ethsnarks_tpu/ops/msm_red.py"
+POINT_ADD = {
+    False: Kernel("point_add_g1", "esn_point_add_g1", _MSM_RED + ":171"),
+    True: Kernel("point_add_g2", "esn_point_add_g2", _MSM_RED + ":193"),
+}
+POINT_DOUBLE = {
+    False: Kernel("point_double_g1", "esn_point_double_g1", _MSM_RED + ":249"),
+    True: Kernel("point_double_g2", "esn_point_double_g2", _MSM_RED + ":268"),
+}
+# K3 also replaces _k_double_n_add_red (:454) and its G2 form (:481).
+HORNER = {
+    False: Kernel("horner_g1", "esn_horner_g1", _MSM_RED + ":412"),
+    True: Kernel("horner_g2", "esn_horner_g2", _MSM_RED + ":515"),
+}
+ALL = [POINT_ADD[False], POINT_ADD[True], POINT_DOUBLE[False],
+       POINT_DOUBLE[True], HORNER[False], HORNER[True]]
+
+
+def reset_counts():
+    for k in ALL:
+        k.launches = 0
+
+
+def _check_points(P, g2, what):
+    shape = curve.point_shape(g2)
+    if P.dtype != torch.int32 or tuple(P.shape[1:]) != shape:
+        raise ValueError("%s: expected int32 (n, %s) points, got %s %s"
+                         % (what, ", ".join(map(str, shape)), P.dtype,
+                            tuple(P.shape)))
+    if not P.is_contiguous():
+        raise ValueError("%s: points must be contiguous" % what)
+
+
+def _check_index(idx, n, device, what):
+    if idx is None:
+        return
+    if idx.dtype != torch.int64 or idx.dim() != 1 or idx.shape[0] != n:
+        raise ValueError("%s: expected int64 (%d,) indices, got %s %s"
+                         % (what, n, idx.dtype, tuple(idx.shape)))
+    if not idx.is_contiguous() or idx.device != device:
+        raise ValueError("%s: indices must be contiguous on %s"
+                         % (what, device))
+
+
+def _on_card(P):
+    if P.device.type == "cpu":
+        return False
+    if P.device.type == "cuda":
+        return True
+    raise ValueError("unsupported device %s" % P.device)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _stream(device):
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def point_add(P, Q, ia=None, ib=None, g2=False):
+    """K1: out[i] = P[ia[i]] + Q[ib[i]] (complete projective add).
+
+    ``ia``/``ib`` are optional int64 index vectors (absent = i); a lane
+    with ``ib[i] = -1`` passes ``P[ia[i]]`` through.  Indices must lie in
+    range: the kernel does not check them."""
+    _check_points(P, g2, "point_add P")
+    _check_points(Q, g2, "point_add Q")
+    n = (ia.shape[0] if ia is not None
+         else ib.shape[0] if ib is not None else P.shape[0])
+    _check_index(ia, n, P.device, "point_add ia")
+    _check_index(ib, n, P.device, "point_add ib")
+    if Q.device != P.device:
+        raise ValueError("point_add: P and Q on different devices")
+    if (ia is None and P.shape[0] < n) or (ib is None and Q.shape[0] < n):
+        raise ValueError("point_add: fewer points than lanes")
+    if n >= 1 << 31:
+        raise ValueError("point_add: %d lanes exceed int32" % n)
+    if not _on_card(P):
+        return curve.point_add_plain(P, Q, ia, ib, g2)
+    out = torch.empty((n,) + curve.point_shape(g2), dtype=torch.int32,
+                      device=P.device)
+    POINT_ADD[g2].launch(P.data_ptr(), Q.data_ptr(), _ptr(ia), _ptr(ib),
+                         out.data_ptr(), n, _stream(P.device))
+    return out
+
+
+def point_double(P, g2=False):
+    """K2: elementwise complete projective doubling."""
+    _check_points(P, g2, "point_double")
+    n = P.shape[0]
+    if n >= 1 << 31:
+        raise ValueError("point_double: %d lanes exceed int32" % n)
+    if not _on_card(P):
+        return curve.point_double_plain(P, g2)
+    out = torch.empty_like(P)
+    POINT_DOUBLE[g2].launch(P.data_ptr(), out.data_ptr(), n,
+                            _stream(P.device))
+    return out
+
+
+def horner(W, c, g2=False):
+    """K3: W (n_win, batch, *point), window 0 least significant ->
+    (batch, *point) sum_w 2^(c*w) W[w], evaluated MSB first.  With two
+    windows [Q, P] it is 2^c * P + Q."""
+    if W.dim() < 2 or not W.is_contiguous():
+        raise ValueError("horner: expected contiguous (n_win, batch, *point)"
+                         " windows")
+    n_win, batch = W.shape[0], W.shape[1]
+    _check_points(W.reshape((n_win * batch,) + tuple(W.shape[2:])), g2,
+                  "horner")
+    if n_win < 1 or c < 0 or n_win * batch >= 1 << 31:
+        raise ValueError("horner: bad shape (n_win=%d, batch=%d, c=%d)"
+                         % (n_win, batch, c))
+    if not _on_card(W):
+        return curve.horner_plain(W, c, g2)
+    out = torch.empty((batch,) + curve.point_shape(g2), dtype=torch.int32,
+                      device=W.device)
+    HORNER[g2].launch(W.data_ptr(), out.data_ptr(), n_win, batch, int(c),
+                      _stream(W.device))
+    return out

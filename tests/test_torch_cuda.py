@@ -1,0 +1,90 @@
+"""The port's CUDA kernels on the card, against their plain twins.
+
+Marked ``cuda``: each test skips without a CUDA device (decided inside the
+fixture, never at import).  On a machine with a card and without JAX::
+
+    python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
+
+This file imports neither JAX nor the JAX package."""
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from ethsnarks_tpu_torch import bn254
+from ethsnarks_tpu_torch.groth16 import ProverContext
+from ethsnarks_tpu_torch.ops import curve, kernels, msm
+from ethsnarks_tpu_torch.ops.fp import ints_to_words_np
+from ethsnarks_tpu_torch.serialization import read_pk_binary, \
+    r1cs_from_dict, witness_from_json
+
+pytestmark = pytest.mark.cuda
+
+FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                       "ethsnarks_tpu_torch", "fixtures", "mimc_chain_10")
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _points(n, g2, device, seed):
+    gen = bn254.G2_GEN if g2 else bn254.G1_GEN
+    base = [bn254.multiply(gen, j + 1) for j in range(32)] + [None]
+    rng = np.random.default_rng(seed)
+    conv = curve.g2_to_tensor if g2 else curve.g1_to_tensor
+    table = conv(base, device)
+    return table[torch.from_numpy(rng.integers(0, len(base), n)).to(
+        device)].contiguous()
+
+
+@pytest.mark.parametrize('g2', [False, True], ids=['g1', 'g2'])
+def test_kernels_match_twins(card, g2):
+    n = 2048
+    P, Q = _points(n, g2, card, 1), _points(n, g2, card, 2)
+    Q[:64] = P[:64]
+    rng = np.random.default_rng(3)
+    ia = torch.from_numpy(rng.integers(0, n, n)).to(card)
+    ib = torch.from_numpy(rng.integers(-1, n, n)).to(card)
+    W = P.reshape((4, n // 4) + P.shape[1:]).contiguous()
+    for got, want in (
+            (kernels.point_add(P, Q, g2=g2), curve.point_add_plain(P, Q, g2=g2)),
+            (kernels.point_add(P, Q, ia, ib, g2),
+             curve.point_add_plain(P, Q, ia, ib, g2)),
+            (kernels.point_double(P, g2), curve.point_double_plain(P, g2)),
+            (kernels.horner(W, 4, g2), curve.horner_plain(W, 4, g2))):
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize('g2', [False, True], ids=['g1', 'g2'])
+def test_msm_on_card(card, g2):
+    n = 256
+    gen = bn254.G2_GEN if g2 else bn254.G1_GEN
+    pts = [bn254.multiply(gen, j + 1) for j in range(n)]
+    rng = np.random.default_rng(4)
+    scalars = [int.from_bytes(rng.bytes(32), 'little') % bn254.CURVE_ORDER
+               for _ in range(n)]
+    conv = curve.g2_to_tensor if g2 else curve.g1_to_tensor
+    digits = msm.window_digits(torch.from_numpy(
+        ints_to_words_np(scalars)).to(card), 8)
+    got = (msm.msm_g2 if g2 else msm.msm_g1)(conv(pts, card), digits, 8)
+    want = None
+    for s, p in zip(scalars, pts):
+        want = bn254.add(want, bn254.multiply(p, s))
+    assert got == want
+
+
+def test_prove_fixture_on_card(card):
+    with open(os.path.join(FIXTURE, "r1cs.json")) as fh:
+        cs = r1cs_from_dict(json.load(fh))
+    ctx = ProverContext(read_pk_binary(os.path.join(FIXTURE, "pk.bin")), cs)
+    proof = ctx.prove(witness_from_json(os.path.join(FIXTURE,
+                                                     "witness.json")))
+    with open(os.path.join(FIXTURE, "proof.json")) as fh:
+        assert proof.to_json() == fh.read()

@@ -1,0 +1,48 @@
+"""The PyTorch/CUDA port imports neither JAX nor the JAX package.
+
+Every module of ``ethsnarks_tpu_torch/`` and ``chip_smoke.py`` is parsed
+(not imported) and each import statement is checked."""
+import ast
+import os
+
+import pytest
+
+ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
+PORT = os.path.join(ROOT, "ethsnarks_tpu_torch")
+
+
+def _sources():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, files in os.walk(PORT):
+        out += [os.path.join(d, f) for f in sorted(files) if f.endswith(".py")]
+    return sorted(os.path.relpath(p, ROOT) for p in out)
+
+
+def _forbidden(name):
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "ethsnarks_tpu")
+
+
+def test_port_has_modules():
+    assert len(_sources()) >= 15
+
+
+@pytest.mark.parametrize("relpath", _sources())
+def test_no_jax_imports(relpath):
+    with open(os.path.join(ROOT, relpath)) as fh:
+        tree = ast.parse(fh.read(), relpath)
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            if node.module and _forbidden(node.module):
+                bad.append(node.module)
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "id", getattr(node.func, "attr", "")) in (
+                    "import_module", "__import__"):
+            for arg in node.args:
+                if isinstance(arg, ast.Constant) and isinstance(
+                        arg.value, str) and _forbidden(arg.value):
+                    bad.append(arg.value)
+    assert not bad, "%s imports %s" % (relpath, bad)
