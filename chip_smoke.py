@@ -5,28 +5,43 @@
 
 Phases (any mismatch fails the run with a non-zero exit):
 
-1. device: the card's name and power limit; build the CUDA kernels.
-2. kernels vs twins: every kernel (K1 point_add with and without index
+1. device: the card's name and power limit; build the CUDA kernels (one
+   nvcc per source, in parallel).
+2. kernels vs twins: every MSM kernel (K1 point_add with and without index
    tensors, K2 point_double, K3 horner; G1 and G2) against its plain
    PyTorch version on the same card tensors, bit for bit: at 2^14 points
    with identity, P + P and P + (-P) lanes, at the K2/K3 shapes of the
    fixture prove, and at the shapes a 2^20 MSM gives each kernel, where
-   both are also timed (CUDA events).
-3. prove (the main path): the committed 729-constraint MiMC fixture, two
-   proofs from one ProverContext (the key stays on the card); each proof's
-   JSON must equal the reference prover's; every kernel must have launched.
-4. full size: G1 and G2 MSMs of 2^20 points (exact class-sum oracle,
+   both are also timed (CUDA events).  Then K4 fixed_base_mul (G1, G2)
+   against its plain version at 2^14 scalars (0, 1, r - 1, scalars with
+   zero bytes, every single-nonzero-byte position and value) and against
+   host double-and-add on a sample, and at 2^20 uniform scalars, timed.
+3. setup of the fixture: the port's generator on the committed fixture's
+   constraint system with the fixture's seeded rng reproduces the
+   committed pk.bin and vk.json byte for byte; K4 must launch.
+4. prove the fixture: two proofs from one ProverContext (the key stays on
+   the card); each proof's JSON must equal the reference prover's; every
+   MSM kernel must have launched.
+5. full size: G1 and G2 MSMs of 2^20 points (exact class-sum oracle,
    points/s; each MSM must launch K1, K2 and K3 of its group and no
-   other) and the witness-map transform chain at m = 2^21 (spot
-   evaluations against host Horner sums).  Launch counts are reset before
-   and read after each path.
+   other) and the witness-map transform chain at m = 2^20 (spot
+   evaluations against host Horner sums).
+6. setup -> prove -> verify at full width: the 1,045,409-constraint MiMC-e7
+   chain of tools/bench_prove.py:build_circuit(20) (m = 2^20) goes
+   through the port's generator on the card (both K4 instances must
+   launch), a ProverContext on the resulting key and two proofs (every MSM
+   kernel must launch); each proof must pass vk.verify, and the proof with
+   its input changed by one must fail it.
 
-The last lines are a JSON ``kernels`` record, the nvidia-smi line, and
+Launch counts are reset just before and read just after each path.  The
+last lines are a JSON ``kernels`` record, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.  Without CUDA the script fails.
 """
 
 import json
 import os
+import random
+import resource
 import subprocess
 import sys
 import time
@@ -36,22 +51,29 @@ import torch
 
 from ethsnarks_tpu_torch import bn254
 from ethsnarks_tpu_torch.field import CURVE_ORDER, SNARK_SCALAR_FIELD
-from ethsnarks_tpu_torch.groth16 import ProverContext
+from ethsnarks_tpu_torch.gadgets import MiMCe7_gadget
+from ethsnarks_tpu_torch.groth16 import ProverContext, generator
+from ethsnarks_tpu_torch.mimc import mimc
 from ethsnarks_tpu_torch.ops import _build, curve, kernels, msm
+from ethsnarks_tpu_torch.ops.batch_exp import BatchExp, C, N_WIN
 from ethsnarks_tpu_torch.ops.fp import Fq, Fr, words_to_h16, \
     ints_to_words_np, words_to_ints, h16_to_words
 from ethsnarks_tpu_torch.ops.ntt import NttDomain
 from ethsnarks_tpu_torch.qap import h_coefficients
+from ethsnarks_tpu_torch.r1cs import ConstraintSystem
 from ethsnarks_tpu_torch.serialization import read_pk_binary, \
-    r1cs_from_dict, witness_from_json
+    r1cs_from_dict, witness_from_json, write_pk_binary
+from ethsnarks_tpu_torch.verifier import Proof
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(ROOT, "ethsnarks_tpu_torch", "fixtures",
                        "mimc_chain_10")
 SEED = 12345
+SETUP_SEED = 20261016           # the fixture's setup rng seed
 DEV = torch.device("cuda")
 CHECK_POINTS = 1 << 14          # points per kernel-vs-twin comparison
 TIME_LANES = 1 << 21            # K1 timing lanes (gathers from 2^20 points)
+FULL_LOG = 20                   # MSM points, transform domain, circuit size
 
 # Card limits for the bounds (NVIDIA H100 SXM data sheet): 3.35 TB/s of
 # HBM; 32-bit integer multiply-adds at 64 lanes per SM per clock (half the
@@ -81,23 +103,34 @@ def log(*args):
     print(*args, flush=True)
 
 
+def card_state(where):
+    """Log the card's SM clock, its maximum, power draw and temperature."""
+    q = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
+         "temperature.gpu", "--format=csv,noheader"], capture_output=True,
+        text=True).stdout.strip()
+    log("  card state %s: %s (SM clock, max SM clock, power, temperature)"
+        % (where, q))
+
+
 def fail(msg):
     raise SystemExit("FAIL: " + msg)
 
 
-def cuda_ms(fn, reps=5):
+def cuda_ms(fn, reps=5, warm=True):
     """(mean CUDA-event ms of reps calls after a warm-up, the warm-up's
-    result)."""
-    out = fn()
+    result); warm=False times one call, the one whose result it returns."""
+    out = fn() if warm else None
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(reps):
-        fn()
+    for _ in range(reps if warm else 1):
+        res = fn()
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / reps, out
+    return start.elapsed_time(end) / (reps if warm else 1), \
+        (out if warm else res)
 
 
 def bound_ms(n_bytes, n_imad):
@@ -177,7 +210,7 @@ def phase_kernels(rng, fixture_cs):
     lanes with completeness edge cases, at the K2/K3 shapes of the fixture
     prove's MSMs (window widths ``fixture_cs``), and on the 2^20-MSM shapes
     at which each kernel is timed."""
-    log("== phase 2: kernels vs plain twins")
+    log("== phase 2: kernels vs plain twins (K1-K3)")
     rec = {}
     c = msm.best_c(1 << 20)
     nw = msm.n_windows(c)
@@ -270,7 +303,7 @@ def phase_kernels(rng, fixture_cs):
     return rec
 
 
-# ---------------------------------------------------------------- phase 3
+# ---------------------------------------------------------------- phase 4
 
 def fixture_context():
     """The fixture's ProverContext on the card (key uploaded once)."""
@@ -289,7 +322,7 @@ def launch_counts():
 
 
 def phase_prove(ctx):
-    log("== phase 3: prove the fixture (main path)")
+    log("== phase 4: prove the fixture")
     witness = witness_from_json(os.path.join(FIXTURE, "witness.json"))
     with open(os.path.join(FIXTURE, "proof.json")) as fh:
         expected = fh.read()
@@ -307,13 +340,13 @@ def phase_prove(ctx):
                                     ctx.last_profile.items()})))
     launches = launch_counts()
     log("  launches over the two proofs: %s" % json.dumps(launches))
-    for name, count in launches.items():
-        if count == 0:
-            fail("kernel %s was not launched by the prove" % name)
+    for k in kernels.MSM:
+        if launches[k.name] == 0:
+            fail("kernel %s was not launched by the prove" % k.name)
     return launches, profiles
 
 
-# ---------------------------------------------------------------- phase 4
+# ---------------------------------------------------------------- phase 5
 
 def random_scalars(n, rng):
     """Uniform-ish scalars in [0, r): 256-bit draws reduced mod r."""
@@ -324,8 +357,9 @@ def random_scalars(n, rng):
     return vals % CURVE_ORDER
 
 
-def phase_msm(g2, rng, log_n=20, reps=3):
+def phase_msm(g2, rng, reps=3):
     tag = "G2" if g2 else "G1"
+    log_n = FULL_LOG
     n = 1 << log_n
     t0 = time.perf_counter()
     base_host, base = base_points(g2)
@@ -358,7 +392,7 @@ def phase_msm(g2, rng, log_n=20, reps=3):
                                                                 launches))
     for k in kernels.ALL:
         ran = launches[0][k.name] > 0
-        if ran != (k.name.endswith("_g2") == g2):
+        if ran != (k in kernels.MSM and k.name.endswith("_g2") == g2):
             fail("%s MSM: kernel %s launched %d times" % (
                 tag, k.name, launches[0][k.name]))
     best = min(times[1:])
@@ -407,7 +441,8 @@ def msm_stages(points, words, c, g2):
     return out
 
 
-def phase_transform(rng, log_m=21, n_spot=2):
+def phase_transform(rng, n_spot=2):
+    log_m = FULL_LOG
     m = 1 << log_m
     r = SNARK_SCALAR_FIELD
     t0 = time.perf_counter()
@@ -475,6 +510,227 @@ def phase_transform(rng, log_m=21, n_spot=2):
             "domain_seconds": t_dom, "launches": launches}
 
 
+# ---------------------------------------------------------------- phase 2b
+
+def k4_check_scalars(n, rng):
+    """n scalars for the K4 comparison: 0, 1, r - 1; every byte value
+    alone at a position (d at byte d mod 31, and 1..0x30 in the top byte);
+    uniform scalars, a quarter of them with random bytes zeroed."""
+    special = [0, 1, CURVE_ORDER - 1]
+    special += [d << (8 * (d % 31)) for d in range(1, 256)]
+    special += [d << 248 for d in range(1, 0x31)]
+    vals = list(random_scalars(n - len(special), rng))
+    for j in range(0, len(vals), 4):
+        v = vals[j]
+        for b in rng.integers(0, 32, 8):
+            v &= ~(0xFF << (8 * int(b)))
+        vals[j] = v
+    return special + [int(v) for v in vals]
+
+
+def k4_bound(words, n_win, c, g2, table):
+    """(bound ms, by) for K4 on these scalars: the point adds they need
+    (nonzero digits less one per nonzero scalar) at the add's IMADs, and
+    the bytes of the scalars, the table and the output."""
+    nz = (curve.scalar_digits(words, n_win, c) != 0).sum(0)
+    adds = int((nz - 1).clamp(min=0).sum())
+    n = words.shape[0]
+    n_bytes = 32 * n + table.numel() * 4 + point_bytes(g2) * n
+    return bound_ms(n_bytes, adds * OP_IMAD[("add", g2)]) + (adds,)
+
+
+def phase_k4(rng):
+    """K4 against its plain version, bit for bit, at CHECK_POINTS scalars
+    with the edge cases, and on 2^FULL_LOG uniform scalars (the H query of
+    the full-width setup), where both are timed; a sample of lanes against
+    host double-and-add."""
+    log("== phase 2b: K4 fixed_base_mul vs plain version")
+    rec = {}
+    n_time = 1 << FULL_LOG
+    for g2 in (False, True):
+        tag = "g2" if g2 else "g1"
+        k = kernels.FIXED_BASE_MUL[g2]
+        gen = bn254.G2_GEN if g2 else bn254.G1_GEN
+        t0 = time.perf_counter()
+        be = BatchExp(gen, g2, device=DEV)
+        log("  %s window table (%d points) built and uploaded in %.2f s"
+            % (tag, be.table.shape[0], time.perf_counter() - t0))
+        scalars = k4_check_scalars(CHECK_POINTS, rng)
+        words = torch.from_numpy(ints_to_words_np(scalars)).to(DEV)
+        got = kernels.fixed_base_mul(be.table, words, N_WIN, C, g2)
+        torch.cuda.synchronize()
+        want = curve.fixed_base_plain(be.table, words, N_WIN, C, g2)
+        errs = [same("K4 %s (edge cases)" % k.name, got, want)]
+        sample = list(range(0, 3 + 255 + 48)) + list(
+            range(len(scalars) - 64, len(scalars)))
+        host = (curve.tensor_to_g2 if g2 else curve.tensor_to_g1)(
+            got[torch.tensor(sample, device=DEV)])
+        for j, pt in zip(sample, host):
+            if pt != bn254.multiply(gen, scalars[j]):
+                fail("K4 %s: lane %d differs from host double-and-add"
+                     % (k.name, j))
+        log("  %-34s %d lanes equal host double-and-add" % (k.name,
+                                                            len(sample)))
+        del got, want
+        words = torch.from_numpy(ints_to_words_np(
+            random_scalars(n_time, rng))).to(DEV)
+        ms, got = cuda_ms(lambda: kernels.fixed_base_mul(
+            be.table, words, N_WIN, C, g2))
+        plain_ms, want = cuda_ms(lambda: curve.fixed_base_plain(
+            be.table, words, N_WIN, C, g2), warm=False)
+        shape = "%d uniform scalars, c=%d" % (n_time, C)
+        errs.append(same("K4 %s (%s)" % (k.name, shape), got, want))
+        del got, want
+        b_ms, b_by, adds = k4_bound(words, N_WIN, C, g2, be.table)
+        rec[k.name] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                           bound_ms=b_ms, bound_by=b_by, shape=shape,
+                           adds=adds)
+        log("  %-18s %-30s kernel %10.4f ms  plain %10.2f ms  bound "
+            "%8.4f ms (%s, %d adds)" % (k.name, shape, ms, plain_ms, b_ms,
+                                        b_by, adds))
+        del words, be
+        torch.cuda.empty_cache()
+    return rec
+
+
+# ---------------------------------------------------------------- phase 3
+
+def phase_fixture_setup():
+    """The port's setup of the fixture circuit, with the seeded rng the
+    committed key was made with, must reproduce pk.bin and vk.json."""
+    log("== phase 3: setup of the fixture")
+    with open(os.path.join(FIXTURE, "r1cs.json")) as fh:
+        cs = r1cs_from_dict(json.load(fh))
+    seeded = random.Random(SETUP_SEED)
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    kp = generator(cs, rng=lambda: seeded.randrange(1, SNARK_SCALAR_FIELD),
+                   device=DEV)
+    dt = time.perf_counter() - t0
+    launches = launch_counts()
+    path = os.path.join(_build.BUILD_DIR, "fixture_pk.bin")
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    write_pk_binary(kp.pk, path)
+    for name, data in (("pk.bin", open(path, "rb").read()),
+                       ("vk.json", kp.vk.to_json().encode())):
+        with open(os.path.join(FIXTURE, name), "rb") as fh:
+            if fh.read() != data:
+                fail("fixture setup: %s differs from the committed one"
+                     % name)
+    os.remove(path)
+    if launches[kernels.FIXED_BASE_MUL[False].name] == 0:
+        fail("fixture setup did not launch K4 fixed_base_mul_g1")
+    log("  setup %.3f s: pk.bin and vk.json equal the committed files; "
+        "phases %s; launches %s" % (
+            dt, json.dumps({k: round(v, 4) for k, v in kp.profile.items()}),
+            json.dumps(launches)))
+    return {"seconds": dt, "profile": kp.profile, "launches": launches}
+
+
+# ---------------------------------------------------------------- phase 6
+
+def build_circuit(log_n):
+    """Chain of MiMC-e7 ciphers (tools/bench_prove.py:build_circuit):
+    digest = E_k(...E_k(x)); each link is 364 constraints, plus one bind.
+    Public input: the final digest."""
+    target = 1 << log_n
+    n_links = max(1, (target - 2) // 365)
+    pb = ConstraintSystem()
+    digest = pb.allocate('digest')
+    pb.set_input_sizes(1)
+    x = pb.allocate('x')
+    k = pb.allocate('k')
+    gadgets = []
+    cur = x + 0
+    for i in range(n_links):
+        g = MiMCe7_gadget(pb, cur, k + 0, 'mimc_%d' % i)
+        g.generate_r1cs_constraints()
+        gadgets.append(g)
+        cur = g.result() + 0
+    pb.add_constraint(cur, 1, digest + 0, 'bind')
+
+    pb.setval(x, 777)
+    pb.setval(k, 888)
+    val = 777
+    for g in gadgets:
+        g.generate_r1cs_witness()
+        val = mimc(val, 888)
+    pb.setval(digest, val)
+    assert pb.is_satisfied()
+    return pb
+
+
+def host_rss_gb():
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+
+
+def phase_full_path():
+    """setup -> two proofs -> verify on the MiMC chain of 2^FULL_LOG."""
+    log_n = FULL_LOG
+    log("== phase 6: setup -> prove -> verify, MiMC-e7 chain 2^%d" % log_n)
+    t0 = time.perf_counter()
+    cs = build_circuit(log_n)
+    t_build = time.perf_counter() - t0
+    log("  circuit: %d constraints, %d variables, built with its witness "
+        "in %.1f s; host peak RSS %.2f GB" % (
+            cs.num_constraints, cs.num_variables, t_build, host_rss_gb()))
+    seeded = random.Random(SEED)
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    kp = generator(cs, rng=lambda: seeded.randrange(1, SNARK_SCALAR_FIELD),
+                   device=DEV)
+    t_setup = time.perf_counter() - t0
+    setup_launches = launch_counts()
+    log("  setup %.2f s (m = %d); phases %s; launches %s; host peak RSS "
+        "%.2f GB" % (t_setup, kp.qap.domain_size, json.dumps(
+            {k: round(v, 4) for k, v in kp.profile.items()}),
+            json.dumps(setup_launches), host_rss_gb()))
+    for k in kernels.SETUP:
+        if setup_launches[k.name] == 0:
+            fail("setup did not launch %s" % k.name)
+    t0 = time.perf_counter()
+    ctx = ProverContext(kp.pk, cs, DEV, qap=kp.qap)
+    t_ctx = time.perf_counter() - t0
+    log("  ProverContext on the setup's key and QAP: %.3f s (c = %s); the "
+        "setup's qap_build took %.2f s" % (t_ctx, ctx.c,
+                                          kp.profile["qap_build"]))
+    kernels.reset_counts()
+    proofs, profiles, seconds = [], [], []
+    for rep in range(2):
+        t0 = time.perf_counter()
+        proofs.append(ctx.prove(cs.values))
+        seconds.append(time.perf_counter() - t0)
+        profiles.append(ctx.last_profile)
+        log("  proof %d: %.3f s; phases %s" % (
+            rep, seconds[-1], json.dumps({k: round(v, 4) for k, v in
+                                          ctx.last_profile.items()})))
+    prove_launches = launch_counts()
+    log("  launches over the two proofs: %s" % json.dumps(prove_launches))
+    for k in kernels.MSM:
+        if prove_launches[k.name] == 0:
+            fail("kernel %s was not launched by the 2^%d prove"
+                 % (k.name, log_n))
+    if proofs[0].to_json() != proofs[1].to_json():
+        fail("two nozk proofs of one witness differ")
+    t0 = time.perf_counter()
+    for rep, proof in enumerate(proofs):
+        if not kp.vk.verify(proof):
+            fail("2^%d proof %d does not verify" % (log_n, rep))
+    bad = Proof(proofs[0].A, proofs[0].B, proofs[0].C,
+                [(proofs[0].input[0] + 1) % SNARK_SCALAR_FIELD])
+    if kp.vk.verify(bad):
+        fail("the proof with its input changed by one verifies")
+    t_verify = time.perf_counter() - t0
+    log("  both proofs verify, the tampered one does not (%.2f s for three"
+        " host verifications)" % t_verify)
+    return {"constraints": cs.num_constraints, "m": kp.qap.domain_size,
+            "build_seconds": t_build, "setup_seconds": t_setup,
+            "setup_profile": kp.profile, "setup_launches": setup_launches,
+            "context_seconds": t_ctx, "prove_seconds": seconds,
+            "prove_profiles": profiles, "prove_launches": prove_launches,
+            "verify_seconds": t_verify}
+
+
 # ---------------------------------------------------------------- main
 
 def main():
@@ -499,19 +755,37 @@ def main():
 
     rng = np.random.default_rng(SEED)
     ctx = fixture_context()
+    card_state("before phase 2")
     rec = phase_kernels(rng, sorted(set(ctx.c.values())))
+    card_state("after phase 2")
+    rec.update(phase_k4(rng))
+    fixture_setup = phase_fixture_setup()
     launches, profiles = phase_prove(ctx)
-    log("== phase 4: full size")
+    log("== phase 5: full size")
+    card_state("before the MSMs")
     full = {"msm_g1": phase_msm(False, rng), "msm_g2": phase_msm(True, rng),
             "transform": phase_transform(rng)}
     log("  full-size results: %s" % json.dumps(full))
-    log("  prove profiles: %s" % json.dumps(profiles))
+    log("  fixture prove profiles: %s" % json.dumps(profiles))
+    path = phase_full_path()
+    card_state("at the end")
+    log("  full-path results: %s" % json.dumps(
+        dict(path, fixture_setup=fixture_setup)))
+    # "launches": the 2^20 path (K1-K3 over its two proofs, K4 in its
+    # setup); "fixture_launches": the fixture's two proofs and its setup
+    main_launches = dict(path["prove_launches"],
+                         **{k.name: path["setup_launches"][k.name]
+                            for k in kernels.SETUP})
+    fixture_launches = dict(launches,
+                            **{k.name: fixture_setup["launches"][k.name]
+                               for k in kernels.SETUP})
 
     out = []
     for k in kernels.ALL:
         r = rec[k.name]
         out.append({"name": k.name, "route": k.route, "source": k.source,
-                    "replaces": k.replaces, "launches": launches[k.name],
+                    "replaces": k.replaces, "launches": main_launches[k.name],
+                    "fixture_launches": fixture_launches[k.name],
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"], "library_ms": None,

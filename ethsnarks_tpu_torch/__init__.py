@@ -1,10 +1,12 @@
-"""PyTorch/CUDA port of the ethsnarks_tpu Groth16 prover.
+"""PyTorch/CUDA port of the ethsnarks_tpu Groth16 setup and prover.
 
 The JAX package ``ethsnarks_tpu`` is the reference; this package imports
 nothing of it (nor JAX) and keeps its own copies of what it needs.  The
-main path is the nozk prover (:class:`groth16.ProverContext`): witness map,
-window digits, four Pippenger MSMs on hand-written Hopper kernels
-(``csrc/``), host finalisation.
+paths are the nozk setup (:func:`groth16.generator`: QAP, host instance
+map, every query as one fixed-base batch multiplication on a hand-written
+Hopper kernel) and the nozk prover (:class:`groth16.ProverContext`:
+witness map, window digits, four Pippenger MSMs on hand-written Hopper
+kernels, host finalisation); the kernels are in ``csrc/``.
 
 Entry points take ``device=None``, which means the CUDA card.  Without one
 they raise: nothing drops to the CPU unless the caller passes

@@ -26,7 +26,8 @@
 // integer carries, not a matrix product.
 //
 // Every launcher returns cudaGetLastError() after the launch; the Python
-// wrapper raises on a non-zero value.
+// wrapper raises on a non-zero value.  The setup's K4 (setup_kernels.cu) is
+// included at the end, so every kernel of the port is one library.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -114,3 +115,6 @@ using esn::fq2;
 
 ESN_LAUNCHERS(g1, fq)
 ESN_LAUNCHERS(g2, fq2)
+
+// K4 fixed_base_mul of the setup: its own source, built into this library.
+#include "setup_kernels.cu"

@@ -1,5 +1,11 @@
-"""nozk Groth16 prover on the card (counterpart of the device branch of
-``ethsnarks_tpu/groth16.py`` ``ProverContext.prove``, :697-790).
+"""nozk Groth16 setup and prover on the card (counterparts of
+``ethsnarks_tpu/groth16.py`` ``generator``, :176-291, and of the device
+branch of ``ProverContext.prove``, :697-790).
+
+Setup: the QAP, the seeded draws of t, alpha, beta, gamma and delta, the
+host instance map, then every query as one fixed-base batch
+multiplication (:mod:`.ops.batch_exp`, K4 on the card); the query points
+stay on the device in projective form and feed the prover directly.
 
 One proof: one witness upload, the witness map (:mod:`.qap`), window digits
 of H and of the witness columns of the A, B and L queries, four Pippenger
@@ -9,17 +15,20 @@ carry no blinding and are deterministic: the same witness gives the
 reference host prover's exact proof.
 """
 
+import secrets
 import time
 
 import torch
 
 from . import resolve_device
-from .bn254 import add
+from .bn254 import G1_GEN, G2_GEN, add
 from .field import SNARK_SCALAR_FIELD
+from .ops import curve
+from .ops.batch_exp import BatchExp
 from .ops.fp import ints_to_words_np
 from .ops.msm import best_c, msm_g1, msm_g2, window_digits
 from .qap import QAP
-from .verifier import Proof
+from .verifier import Proof, VerifyingKey
 
 P = SNARK_SCALAR_FIELD
 
@@ -50,14 +59,114 @@ class ProvingKey(object):
             self.h_pts.to(device), self.l_pts.to(device), self.num_inputs)
 
 
+class Keypair(object):
+    """A proving and a verifying key.  ``profile`` holds the setup's phase
+    seconds and ``qap`` the compiled QAP it built, which a
+    :class:`ProverContext` of the same circuit may reuse."""
+
+    def __init__(self, pk, vk, profile=None, qap=None):
+        self.pk = pk
+        self.vk = vk
+        self.profile = profile
+        self.qap = qap
+
+
+def _marker(device):
+    """mark(name) appends (name, time), synchronising the card first."""
+    marks = []
+
+    def mark(name):
+        if device.type == 'cuda':
+            torch.cuda.synchronize(device)
+        marks.append((name, time.perf_counter()))
+    return marks, mark
+
+
+def _spans(marks):
+    return {name: t - marks[i][1] for i, (name, t) in enumerate(marks[1:])}
+
+
+def generator(cs, rng=None, device=None, zk=False):
+    """Trusted setup of a nozk keypair for a finished constraint system.
+
+    rng: callable returning random field elements; the same rng gives the
+    reference ``generator(device_exp=False)``'s keypair, point for point
+    (default: rejection-sampled ``secrets.randbelow``).  Every query is
+    one K4 launch; the header points are host multiples.  The phase seconds, synchronised at each mark and named as the
+    reference's marks, are left in the keypair's ``profile``."""
+    if zk:
+        raise NotImplementedError(
+            "zk keys are not ported: this setup makes nozk keys")
+    dev = resolve_device(device)
+    marks, mark = _marker(dev)
+    mark('start')
+    rng = rng or (lambda: secrets.randbelow(P - 1) + 1)
+    qap = QAP(cs, dev)
+    mark('qap_build')
+    while True:
+        t = rng()
+        if pow(t, qap.domain_size, P) != 1:
+            break
+    alpha, beta, gamma, delta = rng(), rng(), rng(), rng()
+    gamma_inv = pow(gamma, -1, P)
+    delta_inv = pow(delta, -1, P)
+    At, Bt, Ct, Zt = qap.instance_map(t)
+    mark('instance_map')
+    nv, ni, m = qap.num_variables, qap.num_inputs, qap.domain_size
+
+    g1 = BatchExp(G1_GEN, False, device=dev)
+    g2 = BatchExp(G2_GEN, True, device=dev)
+    # sparse queries: zero entries dropped (the nozk key conversion)
+    a_idx = [i for i in range(nv) if At[i]]
+    a_pts = g1.mul_many([At[i] for i in a_idx])
+    mark('a_query')
+    b_idx = [i for i in range(nv) if Bt[i]]
+    b_pts = g2.mul_many([Bt[i] for i in b_idx])
+    mark('b_query_g2')
+    # H query: t^i Z(t) / delta, stored bit-reversed
+    h_scalar = [0] * m
+    acc = Zt * delta_inv % P
+    for i in range(m):
+        h_scalar[i] = acc
+        acc = acc * t % P
+    h_pts = g1.mul_many([h_scalar[j] for j in qap.domain.bitrev.tolist()])
+    mark('h_query')
+    # L query over the aux variables: (beta A_i + alpha B_i + C_i) / delta
+    l_pts = g1.mul_many([(beta * At[i] + alpha * Bt[i] + Ct[i]) % P
+                         * delta_inv % P for i in range(ni + 1, nv)])
+    mark('l_query')
+    gamma_abc = curve.tensor_to_g1(g1.mul_many(
+        [(beta * At[i] + alpha * Bt[i] + Ct[i]) % P * gamma_inv % P
+         for i in range(ni + 1)]))
+    mark('gamma_abc')
+    if any(p is None for p in gamma_abc):
+        raise ValueError("zero gammaABC entry; input variable unused")
+    alpha_g1, beta_g2 = g1.mul(alpha), g2.mul(beta)
+    delta_g2 = g2.mul(delta)
+    vk = VerifyingKey(alpha=alpha_g1, beta=beta_g2, gamma=g2.mul(gamma),
+                      delta=delta_g2, gammaABC=gamma_abc)
+    pk = ProvingKey(
+        alpha_g1=alpha_g1, beta_g2=beta_g2, delta_g2=delta_g2,
+        a_idx=torch.tensor(a_idx, dtype=torch.int64, device=dev),
+        a_pts=a_pts,
+        b_idx=torch.tensor(b_idx, dtype=torch.int64, device=dev),
+        b_pts=b_pts, h_pts=h_pts, l_pts=l_pts, num_inputs=ni)
+    mark('vk_pk')
+    return Keypair(pk, vk, _spans(marks), qap)
+
+
 class ProverContext(object):
     """Per-circuit proving state: the key's query points stay on the device
-    across proofs, with the QAP's COO matrices and NTT constants."""
+    across proofs, with the QAP's COO matrices and NTT constants (``qap``:
+    one already compiled for ``cs`` on this device, else built here)."""
 
-    def __init__(self, pk, cs, device=None):
+    def __init__(self, pk, cs, device=None, qap=None):
         self.device = resolve_device(device)
         self.pk = pk.to(self.device)
-        self.qap = QAP(cs, self.device)
+        if qap is not None and qap.device != self.device:
+            raise ValueError("QAP compiled for %s, context on %s"
+                             % (qap.device, self.device))
+        self.qap = qap if qap is not None else QAP(cs, self.device)
         if self.pk.h_pts.shape[0] != self.qap.domain_size:
             raise ValueError("H query of %d points for a domain of %d"
                              % (self.pk.h_pts.shape[0], self.qap.domain_size))
@@ -68,11 +177,6 @@ class ProverContext(object):
                       b=best_c(self.pk.b_idx.shape[0]),
                       l=best_c(nv - ni - 1))
         self.last_profile = None
-
-    def _mark(self, marks, name):
-        if self.device.type == 'cuda':
-            torch.cuda.synchronize(self.device)
-        marks.append((name, time.perf_counter()))
 
     def prove(self, witness_values, blind=False):
         """witness_values: the full assignment [1, inputs.., aux..] as ints.
@@ -87,28 +191,27 @@ class ProverContext(object):
         if len(w) != self.qap.num_variables or w[0] != 1:
             raise ValueError("witness must hold %d values starting with 1"
                              % self.qap.num_variables)
-        marks = []
-        self._mark(marks, 'start')
+        marks, mark = _marker(self.device)
+        mark('start')
         w_words = torch.from_numpy(ints_to_words_np(w)).to(self.device)
-        self._mark(marks, 'witness_upload')
+        mark('witness_upload')
         h = self.qap.witness_map(w_words)
-        self._mark(marks, 'witness_map')
+        mark('witness_map')
         h_d = window_digits(h, c['h'])
         a_d = window_digits(w_words[pk.a_idx], c['a'])
         b_d = window_digits(w_words[pk.b_idx], c['b'])
         l_d = window_digits(w_words[self.l_idx], c['l'])
-        self._mark(marks, 'digits')
+        mark('digits')
         h_eval = msm_g1(pk.h_pts, h_d, c['h'])
-        self._mark(marks, 'h_msm')
+        mark('h_msm')
         a_eval = msm_g1(pk.a_pts, a_d, c['a'])
-        self._mark(marks, 'a_msm')
+        mark('a_msm')
         b_eval = msm_g2(pk.b_pts, b_d, c['b'])
-        self._mark(marks, 'b_msm_g2')
+        mark('b_msm_g2')
         l_eval = msm_g1(pk.l_pts, l_d, c['l'])
-        self._mark(marks, 'l_msm')
+        mark('l_msm')
         proof = Proof(A=add(pk.alpha_g1, a_eval), B=add(pk.beta_g2, b_eval),
                       C=add(h_eval, l_eval), input=w[1:1 + ni])
-        self._mark(marks, 'finalise')
-        self.last_profile = {name: t - marks[i][1]
-                             for i, (name, t) in enumerate(marks[1:])}
+        mark('finalise')
+        self.last_profile = _spans(marks)
         return proof

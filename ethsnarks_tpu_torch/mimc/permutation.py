@@ -1,0 +1,60 @@
+"""MiMC block cipher, host oracle (own copy of the cipher part of
+``ethsnarks_tpu/mimc/permutation.py``).
+
+Round constants are the iterated Keccak-256 chain seeded with
+keccak(b"mimc"), used unreduced (the rounds reduce mod p); MiMC-e7 runs
+91 rounds of x <- (x + k + c_i)^7, then adds k.  The hash modes wait for
+a later slice.
+"""
+
+from ..field import SNARK_SCALAR_FIELD
+from ..keccak import keccak_256
+
+DEFAULT_EXPONENT = 7
+DEFAULT_ROUNDS = 91
+DEFAULT_SEED = b'mimc'
+
+_constants_cache = {}
+
+
+def _as_bytes(value):
+    if isinstance(value, str):
+        return value.encode('ascii')
+    if isinstance(value, bytes):
+        return value
+    return int(value).to_bytes(32, 'big')
+
+
+def H(*args):
+    digest = keccak_256(b''.join(_as_bytes(a) for a in args)).digest()
+    return int.from_bytes(digest, 'big')
+
+
+def mimc_constants(seed=DEFAULT_SEED, p=SNARK_SCALAR_FIELD, R=DEFAULT_ROUNDS):
+    """The iterated-Keccak round constant chain (a generator)."""
+    if isinstance(seed, str):
+        seed = seed.encode('ascii')
+    seed = H(seed) if isinstance(seed, bytes) else int(seed)
+    for _ in range(R):
+        seed = H(seed)
+        yield seed
+
+
+def constants_list(seed=DEFAULT_SEED, p=SNARK_SCALAR_FIELD, R=DEFAULT_ROUNDS):
+    """The round constants as a list, cached per (seed, p, R)."""
+    key = (bytes(seed) if isinstance(seed, (bytes, bytearray)) else seed,
+           p, R)
+    if key not in _constants_cache:
+        _constants_cache[key] = list(mimc_constants(seed, p, R))
+    return _constants_cache[key]
+
+
+def mimc(x, k, seed=DEFAULT_SEED, p=SNARK_SCALAR_FIELD, e=DEFAULT_EXPONENT,
+         R=DEFAULT_ROUNDS):
+    """MiMC cipher E_k(x): R rounds of x <- (x + k + c_i)^e, then + k."""
+    assert R > 2
+    x = int(x) % p
+    k = int(k)
+    for c_i in constants_list(seed, p, R):
+        x = pow((x + k + c_i) % p, e, p)
+    return (x + k) % p

@@ -1,4 +1,5 @@
-"""Build and load the CUDA kernels (``csrc/msm_kernels.cu``) on first use.
+"""Build and load the CUDA kernels (``csrc/msm_kernels.cu``, which includes
+``csrc/setup_kernels.cu``) on first use.
 
 The source is compiled by ``nvcc`` into a shared library with a plain C
 interface under ``build/ethsnarks_tpu_torch/`` at the repo root
@@ -31,6 +32,8 @@ ENTRY_POINTS = {
     "esn_point_double_g2": [_VOID, _VOID, _INT, _VOID],
     "esn_horner_g1": [_VOID, _VOID, _INT, _INT, _INT, _VOID],
     "esn_horner_g2": [_VOID, _VOID, _INT, _INT, _INT, _VOID],
+    "esn_fixed_base_mul_g1": [_VOID, _VOID, _VOID, _INT, _INT, _INT, _VOID],
+    "esn_fixed_base_mul_g2": [_VOID, _VOID, _VOID, _INT, _INT, _INT, _VOID],
 }
 
 _lib = None

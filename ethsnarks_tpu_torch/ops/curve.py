@@ -1,5 +1,6 @@
 """Complete projective BN254 G1/G2 point formulas as plain PyTorch: the
-twins of the CUDA kernels in ``csrc/msm_kernels.cu``.
+twins of the CUDA kernels in ``csrc/msm_kernels.cu`` and
+``csrc/setup_kernels.cu``.
 
 Counterparts: ``ethsnarks_tpu/ops/fp_red.py`` ``g1_add_red`` /
 ``g1_double_red`` (:356-416) and ``g2_add_red`` / ``g2_double_red``
@@ -145,9 +146,52 @@ def horner_plain(W, c, g2=False):
     return acc
 
 
+def scalar_digits(scalars, n_win, c):
+    """int32 (n, 8) words of 256-bit scalars -> (n_win, n) int64 c-bit
+    window digits, window 0 least significant (bits past 256 read 0)."""
+    if not 1 <= c <= 32:
+        raise ValueError("window width %d outside 1..32" % c)
+    x = scalars.to(torch.int64) & 0xFFFFFFFF
+    x = torch.cat([x, torch.zeros_like(x[:, :1])], dim=1)
+    mask = (1 << c) - 1
+    rows = []
+    for w in range(n_win):
+        i0, sh = divmod(w * c, 32)
+        if i0 >= 8:
+            rows.append(torch.zeros_like(x[:, 0]))
+            continue
+        d = x[:, i0] >> sh
+        if sh + c > 32:
+            d = d | (x[:, i0 + 1] << (32 - sh))
+        rows.append(d & mask)
+    return torch.stack(rows)
+
+
+def fixed_base_plain(table, scalars, n_win, c, g2=False):
+    """out[i] = s_i * base from the window table (entry w*2^c + d =
+    d * 2^(c*w) * base): window 0 first, the first nonzero digit loads its
+    table point, each later nonzero digit adds its table point; a zero
+    scalar gives the identity.  The sequence of the K4 kernel."""
+    n = scalars.shape[0]
+    digits = scalar_digits(scalars, n_win, c)
+    acc = identity(n, g2, table.device)
+    started = torch.zeros(n, dtype=torch.bool, device=table.device)
+    bcast = (-1,) + (1,) * len(point_shape(g2))
+    for w in range(n_win):
+        d = digits[w]
+        t = table[(w << c) + d]
+        s = add_points(acc, t, g2)
+        nz = d != 0
+        acc = torch.where((nz & started).reshape(bcast), s,
+                          torch.where(nz.reshape(bcast), t, acc))
+        started |= nz
+    return acc
+
+
 # ---- host <-> tensor ----
 
-def _mont_words(values):
+def mont_words(values):
+    """Python ints -> (n, 8) int32 words of their Montgomery residues."""
     return ints_to_words_np([int(v) * MONT_R % FIELD_MODULUS
                              for v in values])
 
@@ -156,7 +200,7 @@ def identity(n, g2, device):
     """n copies of the identity (0, 1, 0) in Montgomery words."""
     out = torch.zeros((n,) + point_shape(g2), dtype=torch.int32,
                       device=device)
-    one = torch.from_numpy(_mont_words([1])[0]).to(device)
+    one = torch.from_numpy(mont_words([1])[0]).to(device)
     if g2:
         out[:, 1, 0] = one
     else:
@@ -169,7 +213,7 @@ def g1_to_tensor(points, device):
     vals = []
     for p in points:
         vals += [0, 1, 0] if p is None else [p[0].n, p[1].n, 1]
-    return torch.from_numpy(_mont_words(vals).reshape(-1, 3, 8)).to(device)
+    return torch.from_numpy(mont_words(vals).reshape(-1, 3, 8)).to(device)
 
 
 def g2_to_tensor(points, device):
@@ -180,36 +224,61 @@ def g2_to_tensor(points, device):
         else:
             vals += p[0].coeffs + p[1].coeffs + [1, 0]
     return torch.from_numpy(
-        _mont_words(vals).reshape(-1, 3, 2, 8)).to(device)
+        mont_words(vals).reshape(-1, 3, 2, 8)).to(device)
 
 
-def _unmont(words):
-    rinv = pow(MONT_R, -1, FIELD_MODULUS)
-    return [v * rinv % FIELD_MODULUS for v in words_to_ints(words)]
+def _batch_inverse(vals):
+    """Inverses mod q of a list of ints by one modular inversion
+    (Montgomery's trick); zeros stay zero."""
+    q = FIELD_MODULUS
+    prefix, acc = [], 1
+    for v in vals:
+        prefix.append(acc)
+        if v:
+            acc = acc * v % q
+    inv = pow(acc, -1, q)
+    out = [0] * len(vals)
+    for i in range(len(vals) - 1, -1, -1):
+        v = vals[i]
+        if v:
+            out[i] = inv * prefix[i] % q
+            inv = inv * v % q
+    return out
+
+
+def affine_ints(P, g2=False):
+    """(n, 3[, 2], 8) projective Montgomery words -> (x, y) affine
+    coordinates as plain ints (each a list of n ints on G1, of n [c0, c1]
+    pairs on G2; 0 where Z = 0), and the list of Z = 0 (infinity) flags.
+    One batch inversion for all n points."""
+    q = FIELD_MODULUS
+    rinv = pow(MONT_R, -1, q)
+    v = [w * rinv % q for w in words_to_ints(P)]
+    if not g2:
+        xs, ys, zs = v[0::3], v[1::3], v[2::3]
+        zi = _batch_inverse(zs)
+        return ([x * z % q for x, z in zip(xs, zi)],
+                [y * z % q for y, z in zip(ys, zi)], [z == 0 for z in zs])
+    z0s, z1s = v[4::6], v[5::6]
+    ni = _batch_inverse([(a * a + b * b) % q for a, b in zip(z0s, z1s)])
+    out = ([], [])
+    for i, (z0, z1, n) in enumerate(zip(z0s, z1s, ni)):
+        zi0, zi1 = z0 * n % q, -z1 * n % q          # 1 / (z0 + z1 u)
+        for k in range(2):
+            a0, a1 = v[6 * i + 2 * k], v[6 * i + 2 * k + 1]
+            out[k].append([(a0 * zi0 - a1 * zi1) % q,
+                           (a0 * zi1 + a1 * zi0) % q])
+    return out[0], out[1], [z0 == 0 and z1 == 0 for z0, z1 in zip(z0s, z1s)]
 
 
 def tensor_to_g1(P):
     """(n, 3, 8) Montgomery words -> host affine points (None = inf)."""
-    v = _unmont(P)
-    out = []
-    for i in range(0, len(v), 3):
-        x, y, z = v[i:i + 3]
-        if z == 0:
-            out.append(None)
-        else:
-            zi = pow(z, -1, FIELD_MODULUS)
-            out.append((HostFq(x * zi), HostFq(y * zi)))
-    return out
+    xs, ys, inf = affine_ints(P)
+    return [None if i else (HostFq(x), HostFq(y))
+            for x, y, i in zip(xs, ys, inf)]
 
 
 def tensor_to_g2(P):
-    v = _unmont(P)
-    out = []
-    for i in range(0, len(v), 6):
-        x0, x1, y0, y1, z0, z1 = v[i:i + 6]
-        if z0 == 0 and z1 == 0:
-            out.append(None)
-        else:
-            zi = HostFq2([z0, z1]).inv()
-            out.append((HostFq2([x0, x1]) * zi, HostFq2([y0, y1]) * zi))
-    return out
+    xs, ys, inf = affine_ints(P, g2=True)
+    return [None if i else (HostFq2(x), HostFq2(y))
+            for x, y, i in zip(xs, ys, inf)]

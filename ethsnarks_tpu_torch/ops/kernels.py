@@ -1,4 +1,5 @@
-"""One wrapper per CUDA kernel of ``csrc/msm_kernels.cu``.
+"""One wrapper per CUDA kernel of ``csrc/msm_kernels.cu`` (K1-K3) and
+``csrc/setup_kernels.cu`` (K4).
 
 A wrapper checks dtype, shape and contiguity, then dispatches on where the
 tensors lie: on the CPU it runs the kernel's plain PyTorch twin
@@ -13,19 +14,20 @@ import torch
 from . import curve
 from ._build import function
 
-SOURCE = "ethsnarks_tpu_torch/csrc/msm_kernels.cu"
+MSM_SOURCE = "ethsnarks_tpu_torch/csrc/msm_kernels.cu"
+SETUP_SOURCE = "ethsnarks_tpu_torch/csrc/setup_kernels.cu"
 
 
 class Kernel(object):
-    """Record of one kernel instantiation: its C entry point, the Pallas
-    kernel(s) it replaces, and its launch count."""
+    """Record of one kernel instantiation: its C entry point, its source,
+    the Pallas kernel(s) it replaces, and its launch count."""
 
-    def __init__(self, name, entry, replaces):
+    def __init__(self, name, entry, replaces, source=MSM_SOURCE):
         self.name = name
         self.entry = entry
         self.replaces = replaces
         self.route = "cuda"
-        self.source = SOURCE
+        self.source = source
         self.launches = 0
 
     def launch(self, *args):
@@ -49,8 +51,17 @@ HORNER = {
     False: Kernel("horner_g1", "esn_horner_g1", _MSM_RED + ":412"),
     True: Kernel("horner_g2", "esn_horner_g2", _MSM_RED + ":515"),
 }
-ALL = [POINT_ADD[False], POINT_ADD[True], POINT_DOUBLE[False],
+_PALLAS_OPS = "ethsnarks_tpu/ops/pallas_ops.py"
+FIXED_BASE_MUL = {
+    False: Kernel("fixed_base_mul_g1", "esn_fixed_base_mul_g1",
+                  _PALLAS_OPS + ":230", SETUP_SOURCE),
+    True: Kernel("fixed_base_mul_g2", "esn_fixed_base_mul_g2",
+                 _PALLAS_OPS + ":456", SETUP_SOURCE),
+}
+MSM = [POINT_ADD[False], POINT_ADD[True], POINT_DOUBLE[False],
        POINT_DOUBLE[True], HORNER[False], HORNER[True]]
+SETUP = [FIXED_BASE_MUL[False], FIXED_BASE_MUL[True]]
+ALL = MSM + SETUP
 
 
 def reset_counts():
@@ -155,4 +166,38 @@ def horner(W, c, g2=False):
                       device=W.device)
     HORNER[g2].launch(W.data_ptr(), out.data_ptr(), n_win, batch, int(c),
                       _stream(W.device))
+    return out
+
+
+def fixed_base_mul(table, scalars, n_win, c, g2=False):
+    """K4: out[i] = s_i * base, from the window table of the base.
+
+    table: (n_win * 2^c, *point), entry w*2^c + d = d * 2^(c*w) * base;
+    scalars: int32 (n, 8) words of 256-bit values (read c bits per window,
+    least significant first).  Returns (n, *point) projective points; a
+    zero scalar gives the identity (0, 1, 0)."""
+    _check_points(table, g2, "fixed_base_mul table")
+    if not 1 <= c <= 16 or n_win < 1 or table.shape[0] != n_win << c:
+        raise ValueError("fixed_base_mul: a table of %d points for n_win=%d,"
+                         " c=%d" % (table.shape[0], n_win, c))
+    if scalars.dtype != torch.int32 or scalars.dim() != 2 or \
+            scalars.shape[1] != 8 or not scalars.is_contiguous():
+        raise ValueError("fixed_base_mul: expected contiguous int32 (n, 8) "
+                         "scalars, got %s %s" % (scalars.dtype,
+                                                 tuple(scalars.shape)))
+    if scalars.device != table.device:
+        raise ValueError("fixed_base_mul: table and scalars on different "
+                         "devices")
+    n = scalars.shape[0]
+    if n >= 1 << 31:
+        raise ValueError("fixed_base_mul: %d scalars exceed int32" % n)
+    if not _on_card(table):
+        return curve.fixed_base_plain(table, scalars, n_win, c, g2)
+    out = torch.empty((n,) + curve.point_shape(g2), dtype=torch.int32,
+                      device=table.device)
+    if n == 0:
+        return out
+    FIXED_BASE_MUL[g2].launch(table.data_ptr(), scalars.data_ptr(),
+                              out.data_ptr(), n, n_win, int(c),
+                              _stream(table.device))
     return out

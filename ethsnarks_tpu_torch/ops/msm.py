@@ -41,20 +41,7 @@ def best_c(n):
 def window_digits(scalars, c):
     """Canonical scalars, int32 words (b, 8) -> (ceil(254/c), b) int64
     window digits, window 0 least significant."""
-    if not 1 <= c <= 32:
-        raise ValueError("window width %d outside 1..32" % c)
-    x = scalars.to(torch.int64) & 0xFFFFFFFF
-    x = torch.cat([x, torch.zeros_like(x[:, :1])], dim=1)
-    mask = (1 << c) - 1
-    rows = []
-    for w in range(n_windows(c)):
-        lo = w * c
-        i0, sh = lo // 32, lo % 32
-        d = x[:, i0] >> sh
-        if sh + c > 32:
-            d = d | (x[:, i0 + 1] << (32 - sh))
-        rows.append(d & mask)
-    return torch.stack(rows)
+    return curve.scalar_digits(scalars, n_windows(c), c)
 
 
 def check_digit_contract(digits, c):

@@ -1,5 +1,6 @@
-"""R1CS -> QAP witness map as plain PyTorch (counterpart of
-``ethsnarks_tpu/qap.py:34-126``).
+"""R1CS -> QAP: the witness map as plain PyTorch and the setup's host
+instance map (counterparts of ``ethsnarks_tpu/qap.py:34-126`` and
+``:312-350``).
 
 The domain has size next_pow2(num_constraints + num_inputs + 1); rows
 n .. n + num_inputs of A pin the inputs (aA[n + j] = w_j, w_0 = 1).  The
@@ -65,8 +66,9 @@ class QAP(object):
         self.domain_size = next_pow2(self.num_constraints + self.num_inputs
                                      + 1)
         self.domain = NttDomain(self.domain_size, self.device)
+        self.coo_host = cs.to_coo()
         self.coo = {}
-        for name, (rows, cols, coeffs) in cs.to_coo().items():
+        for name, (rows, cols, coeffs) in self.coo_host.items():
             max_terms = int(np.bincount(rows).max()) if len(rows) else 1
             self.coo[name] = (
                 torch.from_numpy(rows).to(self.device),
@@ -94,3 +96,41 @@ class QAP(object):
                            self._matvec('c', w_mont)], dim=1)
         h = h_coefficients(self.domain, abc)
         return h16_to_words(Fr.from_mont(h))
+
+    def instance_map(self, t):
+        """A_i(t), B_i(t), C_i(t) for every variable i, and Z(t), as python
+        ints (host, exact): the Lagrange values at t by one batch
+        inversion, L_j(t) = Z(t) / m * w^j / (t - w^j), summed through the
+        sparse matrices, plus the input-consistency rows of A."""
+        m = self.domain_size
+        omega = self.domain.omega
+        zt = (pow(t, m, P) - 1) % P
+        zt_over_m = zt * pow(m, -1, P) % P
+        omega_pows = [1] * m
+        for i in range(1, m):
+            omega_pows[i] = omega_pows[i - 1] * omega % P
+        diffs = [(t - w) % P for w in omega_pows]
+        if not all(diffs):
+            raise ValueError("t is in the domain; resample")
+        prefix = [1] * (m + 1)
+        for i in range(m):
+            prefix[i + 1] = prefix[i] * diffs[i] % P
+        inv_all = pow(prefix[m], -1, P)
+        u = [0] * m
+        for i in range(m - 1, -1, -1):
+            u[i] = zt_over_m * omega_pows[i] % P * (inv_all * prefix[i] % P) \
+                % P
+            inv_all = inv_all * diffs[i] % P
+        nv = self.num_variables
+        out = []
+        for name in 'abc':
+            rows, cols, coeffs = self.coo_host[name]
+            target = [0] * nv
+            for r, c, v in zip(rows.tolist(), cols.tolist(), coeffs):
+                target[c] = (target[c] + v * u[r]) % P
+            out.append(target)
+        at = out[0]
+        n = self.num_constraints
+        for j in range(self.num_inputs + 1):
+            at[j] = (at[j] + u[n + j]) % P
+        return out[0], out[1], out[2], zt

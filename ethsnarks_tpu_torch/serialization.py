@@ -1,11 +1,12 @@
-"""Readers of the reference's on-disk formats (counterparts in
+"""The reference's on-disk formats (counterparts in
 ``ethsnarks_tpu/serialization.py``).
 
-- :func:`read_pk_binary`: the binary Montgomery-form proving key written by
-  the reference's ``write_pk_binary`` (:208-345), read straight into point
-  tensors on the device.  The key stores field elements as 8 little-endian
-  32-bit words of x * 2^256 mod q, the port's own layout, so the query
-  points load without arithmetic.
+- :func:`read_pk_binary` / :func:`write_pk_binary`: the binary
+  Montgomery-form proving key of the reference (:208-345).  The key stores
+  field elements as 8 little-endian 32-bit words of x * 2^256 mod q, the
+  port's own layout, so the query points load into device tensors without
+  arithmetic; writing normalises the projective query points to affine
+  with one batch inversion per query.  Each reads what the other writes.
 - :func:`r1cs_from_dict`: the ``r1cs_to_dict`` layout (:13-26).
 - witness JSON: a flat list of decimal strings.
 """
@@ -18,18 +19,24 @@ import torch
 from . import resolve_device
 from .bn254 import Fq, Fq2
 from .field import FIELD_MODULUS
+from .ops import curve
 from .ops.fp import MONT_R, ints_to_words_np
-from .r1cs import ConstraintSystem
+from .r1cs import ConstraintSystem, LinearCombination
 
 _PK_MAGIC = b"ETSNARKS-TPU-PK\x01"
 _ONE_WORDS = ints_to_words_np([MONT_R % FIELD_MODULUS])[0].view(np.uint32)
 
 
 def r1cs_from_dict(d):
-    return ConstraintSystem(
-        int(d["nPubInputs"]), int(d["nVars"]),
-        [[{int(k): int(v) for k, v in lc.items()} for lc in row]
-         for row in d["constraints"]])
+    """A ConstraintSystem with the constraints of ``d`` (no witness)."""
+    cs = ConstraintSystem()
+    for _ in range(int(d["nVars"]) - 1):
+        cs.allocate()
+    cs.set_input_sizes(int(d["nPubInputs"]))
+    for row in d["constraints"]:
+        cs.add_constraint(*[LinearCombination(
+            {int(k): int(v) for k, v in lc.items()}) for lc in row])
+    return cs
 
 
 def witness_from_json(path):
@@ -123,3 +130,53 @@ def read_pk_binary(path, device=None):
         h_pts=tensor(_g1_points(h_w, h_inf)),
         l_pts=tensor(_g1_points(l_w, l_inf)),
         num_inputs=int(hdr["num_inputs"]))
+
+
+def _mont_words(coords):
+    """Lists of plain coordinate ints (one list per column) -> (n, 8 *
+    columns) uint32 Montgomery words."""
+    flat = [c for row in zip(*coords) for c in row]
+    return curve.mont_words(flat).view(np.uint32).reshape(
+        len(coords[0]), 8 * len(coords))
+
+
+def _g1_block(pts):
+    """Projective G1 point tensor -> affine words (n, 16), infinity flags."""
+    xs, ys, inf = curve.affine_ints(pts)
+    return _mont_words([xs, ys]), np.array(inf, dtype=np.uint8)
+
+
+def _g2_block(pts):
+    xs, ys, inf = curve.affine_ints(pts, g2=True)
+    return (_mont_words([[x[0] for x in xs], [x[1] for x in xs],
+                         [y[0] for y in ys], [y[1] for y in ys]]),
+            np.array(inf, dtype=np.uint8))
+
+
+def write_pk_binary(pk, path):
+    """:class:`groth16.ProvingKey` -> the reference's binary stream, byte
+    for byte what the reference writes for the same key.  Projective query
+    points are normalised to affine (Z = 0 is written as infinity: zero
+    words, flag 1)."""
+    a_idx = pk.a_idx.cpu().numpy().astype(np.uint32)
+    b_idx = pk.b_idx.cpu().numpy().astype(np.uint32)
+    a_w, a_inf = _g1_block(pk.a_pts)
+    b_w, b_inf = _g2_block(pk.b_pts)
+    h_w, h_inf = _g1_block(pk.h_pts)
+    l_w, l_inf = _g1_block(pk.l_pts)
+    al = pk.alpha_g1
+    hdr_w = _mont_words([[al[0].n], [al[1].n]])
+    bet_w = _mont_words([[p[k].coeffs[j] for p in (pk.beta_g2, pk.delta_g2)]
+                         for k in range(2) for j in range(2)])
+    header = json.dumps({
+        "v": 1, "num_inputs": pk.num_inputs,
+        "n_a": len(a_idx), "n_b": len(b_idx),
+        "n_h": int(pk.h_pts.shape[0]), "n_l": int(pk.l_pts.shape[0]),
+    }).encode("ascii")
+    with open(path, "wb") as fh:
+        fh.write(_PK_MAGIC)
+        fh.write(len(header).to_bytes(4, "little"))
+        fh.write(header)
+        for arr in (hdr_w, bet_w, a_idx, a_w, a_inf, b_idx, b_w, b_inf,
+                    h_w, h_inf, l_w, l_inf):
+            fh.write(np.ascontiguousarray(arr).tobytes())

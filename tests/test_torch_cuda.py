@@ -8,17 +8,20 @@ fixture, never at import).  On a machine with a card and without JAX::
 This file imports neither JAX nor the JAX package."""
 import json
 import os
+import random
 
 import numpy as np
 import pytest
 import torch
 
 from ethsnarks_tpu_torch import bn254
-from ethsnarks_tpu_torch.groth16 import ProverContext
+from ethsnarks_tpu_torch.field import SNARK_SCALAR_FIELD
+from ethsnarks_tpu_torch.groth16 import ProverContext, generator
 from ethsnarks_tpu_torch.ops import curve, kernels, msm
+from ethsnarks_tpu_torch.ops.batch_exp import BatchExp, C, N_WIN
 from ethsnarks_tpu_torch.ops.fp import ints_to_words_np
 from ethsnarks_tpu_torch.serialization import read_pk_binary, \
-    r1cs_from_dict, witness_from_json
+    r1cs_from_dict, witness_from_json, write_pk_binary
 
 pytestmark = pytest.mark.cuda
 
@@ -88,3 +91,35 @@ def test_prove_fixture_on_card(card):
                                                      "witness.json")))
     with open(os.path.join(FIXTURE, "proof.json")) as fh:
         assert proof.to_json() == fh.read()
+
+
+@pytest.mark.parametrize('g2', [False, True], ids=['g1', 'g2'])
+def test_fixed_base_mul_matches_plain(card, g2):
+    gen = bn254.G2_GEN if g2 else bn254.G1_GEN
+    be = BatchExp(gen, g2, device=card)
+    rng = np.random.default_rng(5)
+    scalars = [0, 1, bn254.CURVE_ORDER - 1] + \
+        [d << (8 * (d % 32)) for d in range(1, 0x31)] + \
+        [int.from_bytes(rng.bytes(32), 'little') % bn254.CURVE_ORDER
+         for _ in range(2000)]
+    words = torch.from_numpy(ints_to_words_np(scalars)).to(card)
+    before = kernels.FIXED_BASE_MUL[g2].launches
+    got = be.mul_many(scalars)
+    torch.cuda.synchronize()
+    assert kernels.FIXED_BASE_MUL[g2].launches == before + 1
+    assert torch.equal(got, curve.fixed_base_plain(be.table, words, N_WIN, C,
+                                                   g2))
+    host = (curve.tensor_to_g2 if g2 else curve.tensor_to_g1)(got[:64])
+    assert host == [bn254.multiply(gen, s) for s in scalars[:64]]
+
+
+def test_setup_reproduces_fixture_key(card, tmp_path):
+    with open(os.path.join(FIXTURE, "r1cs.json")) as fh:
+        cs = r1cs_from_dict(json.load(fh))
+    seeded = random.Random(20261016)
+    kp = generator(cs, rng=lambda: seeded.randrange(1, SNARK_SCALAR_FIELD))
+    write_pk_binary(kp.pk, str(tmp_path / "pk.bin"))
+    with open(os.path.join(FIXTURE, "pk.bin"), "rb") as fh:
+        assert (tmp_path / "pk.bin").read_bytes() == fh.read()
+    with open(os.path.join(FIXTURE, "vk.json")) as fh:
+        assert kp.vk.to_json() == fh.read()

@@ -11,9 +11,11 @@ Regenerate with::
 
     JAX_PLATFORMS=cpu python tests/test_torch_fixture.py
 
-The test below rebuilds the files in a temporary directory and checks them
-byte for byte against the committed ones.  It is marked slow: the host
-prove takes about a minute.
+The first test below rebuilds the files through the JAX package in a
+temporary directory and checks them byte for byte against the committed
+ones.  It is marked slow: the host prove takes about a minute.  The second
+makes the key through the port's own setup (plain K4 on the CPU) and
+checks pk.bin and vk.json byte for byte.
 """
 import importlib.util
 import json
@@ -22,6 +24,8 @@ import random
 import sys
 
 import pytest
+
+from torch_port_helpers import torch_threads  # noqa: F401
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 FIXTURE_DIR = os.path.join(ROOT, "ethsnarks_tpu_torch", "fixtures",
@@ -70,6 +74,23 @@ def test_fixture_regenerates_byte_identical(tmp_path):
             want = fh.read()
         with open(os.path.join(str(tmp_path), name), "rb") as fh:
             assert fh.read() == want, name
+
+
+def test_port_setup_reproduces_key(tmp_path):
+    from ethsnarks_tpu_torch.field import SNARK_SCALAR_FIELD
+    from ethsnarks_tpu_torch.groth16 import generator
+    from ethsnarks_tpu_torch.serialization import r1cs_from_dict, \
+        write_pk_binary
+    with open(os.path.join(FIXTURE_DIR, "r1cs.json")) as fh:
+        cs = r1cs_from_dict(json.load(fh))
+    seeded = random.Random(SETUP_SEED)
+    kp = generator(cs, rng=lambda: seeded.randrange(1, SNARK_SCALAR_FIELD),
+                   device='cpu')
+    write_pk_binary(kp.pk, str(tmp_path / "pk.bin"))
+    with open(os.path.join(FIXTURE_DIR, "pk.bin"), "rb") as fh:
+        assert (tmp_path / "pk.bin").read_bytes() == fh.read()
+    with open(os.path.join(FIXTURE_DIR, "vk.json")) as fh:
+        assert kp.vk.to_json() == fh.read()
 
 
 if __name__ == "__main__":

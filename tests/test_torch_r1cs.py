@@ -1,0 +1,86 @@
+"""The port's circuit DSL, MiMC gadget, MiMC cipher and Keccak-256
+(ethsnarks_tpu_torch r1cs, gadgets.mimc, mimc, keccak) against the JAX
+package's: the one-link MiMC-e7 chain of ``tools/bench_prove.py`` gives
+equal COO triples and witnesses in both packages."""
+import importlib.util
+import os
+
+import pytest
+
+from ethsnarks_tpu.keccak import keccak_256 as ref_keccak
+from ethsnarks_tpu.mimc import mimc as ref_mimc
+from ethsnarks_tpu.mimc import mimc_constants as ref_constants
+
+from ethsnarks_tpu_torch.keccak import keccak_256
+from ethsnarks_tpu_torch.mimc import mimc, mimc_constants
+from ethsnarks_tpu_torch.qap import QAP
+from ethsnarks_tpu_torch.r1cs import ConstraintSystem, LinearCombination
+
+ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
+
+
+def _load(name, relpath):
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, relpath))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.fixture(scope="module")
+def chains():
+    want = _load("bench_prove", "tools/bench_prove.py").build_circuit(9)
+    got = _load("chip_smoke", "chip_smoke.py").build_circuit(9)
+    return want, got
+
+
+def test_mimc_chain_matches_reference(chains):
+    want, got = chains
+    assert (got.num_constraints, got.num_inputs, got.num_variables) == \
+        (want.num_constraints, want.num_inputs, want.num_variables) == \
+        (365, 1, 368)
+    assert got.values == want.values
+    assert got.is_satisfied()
+    a, b = want.to_coo(), got.to_coo()
+    for name in 'abc':
+        assert a[name][0].tolist() == b[name][0].tolist()
+        assert a[name][1].tolist() == b[name][1].tolist()
+        assert a[name][2] == b[name][2]
+
+
+def test_chain_qap_compiles(chains):
+    _, got = chains
+    qap = QAP(got, 'cpu')
+    assert qap.domain_size == 512
+    wrong = list(got.values)
+    wrong[1] += 1
+    assert not got.is_satisfied(wrong)
+
+
+@pytest.mark.parametrize('x,k', [(0, 0), (777, 888), (1 << 250, 3)])
+def test_mimc_matches_reference(x, k):
+    assert mimc(x, k) == ref_mimc(x, k)
+
+
+def test_mimc_constants_match_reference():
+    assert list(mimc_constants()) == list(ref_constants())
+
+
+@pytest.mark.parametrize('data', [b'', b'mimc', bytes(range(136)),
+                                  bytes(300)],
+                         ids=['empty', 'mimc', 'one_block', 'three_blocks'])
+def test_keccak_matches_reference(data):
+    assert keccak_256(data).hexdigest() == ref_keccak(data).hexdigest()
+
+
+def test_linear_combination_arithmetic():
+    cs = ConstraintSystem()
+    x, y = cs.allocate('x'), cs.allocate('y')
+    lc = 3 * x - y + 5
+    assert isinstance(lc, LinearCombination)
+    assert lc.terms == {x.index: 3, y.index: lc.terms[y.index], 0: 5}
+    cs.setval(x, 2)
+    cs.setval(y, 4)
+    assert cs.lc_val(lc) == 7
+    with pytest.raises(TypeError):
+        x._lc() * y
