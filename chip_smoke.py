@@ -5,8 +5,9 @@
 
 Phases (any mismatch fails the run with a non-zero exit):
 
-1. device: the card's name and power limit; build the CUDA kernels (one
-   nvcc per source, in parallel).
+1. device: the card's name and power limit; build the CUDA kernels (two
+   libraries, one nvcc each, started together: ``msm_kernels`` with every
+   point kernel K1-K6, ``probe_kernels`` with K7).
 2. kernels vs twins: every MSM kernel (K1 point_add with and without index
    tensors, K2 point_double, K3 horner; G1 and G2) against its plain
    PyTorch version on the same card tensors, bit for bit: at 2^14 points
@@ -16,22 +17,43 @@ Phases (any mismatch fails the run with a non-zero exit):
    against its plain version at 2^14 scalars (0, 1, r - 1, scalars with
    zero bytes, every single-nonzero-byte position and value) and against
    host double-and-add on a sample, and at 2^20 uniform scalars, timed.
+2c. K5 bucket_fold and K6 seg_scan (G1, G2) against their plain versions,
+   bit for bit, at 2^14 buckets or elements with identity, P + P and
+   P + (-P) steps, empty buckets, one run over many tiles and never-merging
+   negative keys, in several schedules; then at the shapes of a 2^20 MSM,
+   timed (K6's plain version at 2^20 of its 2^24 elements), and K5 timed
+   against the red MSM's pairfold on the same buckets.  K7 int_probe, every
+   op, against its plain version (bit for bit; f32_fma to a relative
+   1e-6), with the measured rates.
 3. setup of the fixture: the port's generator on the committed fixture's
    constraint system with the fixture's seeded rng reproduces the
    committed pk.bin and vk.json byte for byte; K4 must launch.
 4. prove the fixture: two proofs from one ProverContext (the key stays on
    the card); each proof's JSON must equal the reference prover's; every
-   MSM kernel must have launched.
+   MSM kernel must have launched.  One proof each with msm_impl 'fused'
+   and 'generic' must equal it too.
 5. full size: G1 and G2 MSMs of 2^20 points (exact class-sum oracle,
    points/s; each MSM must launch K1, K2 and K3 of its group and no
    other) and the witness-map transform chain at m = 2^20 (spot
    evaluations against host Horner sums).
+5b. the same 2^20 G1 and G2 MSMs through the dense all-windows driver
+   (msm_impl 'fused': must take the dense route and launch K1, K5 and K3
+   of its group and no other) and the scan MSM (msm_impl 'generic': K6,
+   K5, K2 and K1), against the same oracle, timed.
 6. setup -> prove -> verify at full width: the 1,045,409-constraint MiMC-e7
    chain of tools/bench_prove.py:build_circuit(20) (m = 2^20) goes
    through the port's generator on the card (both K4 instances must
    launch), a ProverContext on the resulting key and two proofs (every MSM
    kernel must launch); each proof must pass vk.verify, and the proof with
    its input changed by one must fail it.
+6b. one proof each from ProverContexts with msm_impl 'fused' and
+   'generic' on the same key and QAP: each proof's JSON must equal the
+   'red' proof's, and each must pass vk.verify.
+7. the new entry points: ``python -m ethsnarks_tpu_torch.bench`` at
+   BENCH_MSM_SIZE=16 in each of its four modes (each must print
+   correct=True), and the probe's main (``python -m
+   ethsnarks_tpu_torch.probe``), run in this process so its K7 launches
+   count.
 
 Launch counts are reset just before and read just after each path.  The
 last lines are a JSON ``kernels`` record, the nvidia-smi line, and
@@ -49,12 +71,15 @@ import time
 import numpy as np
 import torch
 
-from ethsnarks_tpu_torch import bn254
+from ethsnarks_tpu_torch import bench, bn254, probe
+from ethsnarks_tpu_torch.cost import IMAD_PER_S, OP_IMAD, bound_ms, \
+    point_bytes
 from ethsnarks_tpu_torch.field import CURVE_ORDER, SNARK_SCALAR_FIELD
 from ethsnarks_tpu_torch.gadgets import MiMCe7_gadget
 from ethsnarks_tpu_torch.groth16 import ProverContext, generator
 from ethsnarks_tpu_torch.mimc import mimc
-from ethsnarks_tpu_torch.ops import _build, curve, kernels, msm
+from ethsnarks_tpu_torch.ops import _build, curve, fold, int_probe, \
+    kernels, msm, msm_dense, msm_scan
 from ethsnarks_tpu_torch.ops.batch_exp import BatchExp, C, N_WIN
 from ethsnarks_tpu_torch.ops.fp import Fq, Fr, words_to_h16, \
     ints_to_words_np, words_to_ints, h16_to_words
@@ -74,29 +99,7 @@ DEV = torch.device("cuda")
 CHECK_POINTS = 1 << 14          # points per kernel-vs-twin comparison
 TIME_LANES = 1 << 21            # K1 timing lanes (gathers from 2^20 points)
 FULL_LOG = 20                   # MSM points, transform domain, circuit size
-
-# Card limits for the bounds (NVIDIA H100 SXM data sheet): 3.35 TB/s of
-# HBM; 32-bit integer multiply-adds at 64 lanes per SM per clock (half the
-# 128 float32 lanes behind the 67 TFLOP/s float32 rate) x 132 SMs x
-# 1.98 GHz = 16.7e12 IMAD/s.  A 32x32 -> 64-bit product counts as two IMADs,
-# a low 32-bit product as one.
-HBM_BYTES_PER_S = 3.35e12
-IMAD_PER_S = 64 * 132 * 1.98e9
-# 8x8-word CIOS Montgomery product (csrc/field.cuh): 64 wide products of
-# the operands, 8 low products m = t[0] * q', 64 wide products m * q[j].
-# A squaring needs 36 wide operand products (28 off-diagonal, doubled, and
-# 8 diagonal).
-FQ_MUL_IMAD = 2 * 64 + 8 + 2 * 64
-FQ_SQR_IMAD = 2 * 36 + 8 + 2 * 64
-# IMADs per point op, RCB15 algorithms 7 and 9 (csrc/curve.cuh).  G1: 12
-# products per add; 6 products and the squarings Y^2, Z^2 per double (3b = 9
-# is additions).  G2: an Fq2 product is 3 Fq products (Karatsuba), an Fq2
-# squaring 2 (complex squaring); 14 Fq2 products per add (with the two 3b
-# products), 7 products and 2 squarings per double.
-OP_IMAD = {("add", False): 12 * FQ_MUL_IMAD,
-           ("double", False): 6 * FQ_MUL_IMAD + 2 * FQ_SQR_IMAD,
-           ("add", True): 14 * 3 * FQ_MUL_IMAD,
-           ("double", True): (7 * 3 + 2 * 2) * FQ_MUL_IMAD}
+SCAN_PLAIN_LOG = 20             # K6's plain version is timed on 2^20 elements
 
 
 def log(*args):
@@ -131,16 +134,6 @@ def cuda_ms(fn, reps=5, warm=True):
     end.synchronize()
     return start.elapsed_time(end) / (reps if warm else 1), \
         (out if warm else res)
-
-
-def bound_ms(n_bytes, n_imad):
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_imad / IMAD_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
-
-
-def point_bytes(g2):
-    return 192 if g2 else 96
 
 
 # ---------------------------------------------------------------- inputs
@@ -343,6 +336,15 @@ def phase_prove(ctx):
     for k in kernels.MSM:
         if launches[k.name] == 0:
             fail("kernel %s was not launched by the prove" % k.name)
+    for impl in ("fused", "generic"):
+        other = ProverContext(ctx.pk, None, DEV, qap=ctx.qap, msm_impl=impl)
+        t0 = time.perf_counter()
+        proof = other.prove(witness)
+        if proof.to_json() != expected:
+            fail("msm_impl=%r: the fixture proof differs from the reference"
+                 % impl)
+        log("  msm_impl=%r: %.3f s, JSON equal to the reference; routes %s"
+            % (impl, time.perf_counter() - t0, other.last_routes))
     return launches, profiles
 
 
@@ -403,7 +405,56 @@ def phase_msm(g2, rng, reps=3):
     stages = msm_stages(points, words, c, g2)
     log("  %s MSM stages (s, synchronised): %s" % (tag, json.dumps(stages)))
     return {"n": n, "c": c, "seconds": times, "points_per_s": n / best,
-            "launches": launches[0], "stages": stages}
+            "launches": launches[0], "stages": stages}, (points, words, want)
+
+
+def phase_msm_routes(g2, points, words, want, reps=2):
+    """5b: the 2^20 MSM of phase 5 through the dense all-windows driver
+    and the scan MSM (digits made outside the timed region); each must
+    equal the oracle and launch exactly the kernels of its route."""
+    tag = "G2" if g2 else "G1"
+    n = points.shape[0]
+    c = msm.best_c(n)
+    digits = msm.window_digits(words, c)
+    expect = {
+        "fused": {kernels.POINT_ADD[g2], kernels.BUCKET_FOLD[g2],
+                  kernels.HORNER[g2]},
+        "generic": {kernels.SEG_SCAN[g2], kernels.BUCKET_FOLD[g2],
+                    kernels.POINT_DOUBLE[g2], kernels.POINT_ADD[g2]}}
+    scan = msm_scan.msm_g2 if g2 else msm_scan.msm_g1
+    run = {"fused": lambda: msm_dense.msm(points, digits, c, g2),
+           "generic": lambda: (scan(points, digits, c), "scan")}
+    out = {}
+    for impl in ("fused", "generic"):
+        times, counts = [], []
+        for rep in range(reps + 1):
+            kernels.reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got, route = run[impl]()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            counts.append(launch_counts())
+            if got != want:
+                fail("%s MSM 2^%d, msm_impl=%r, differs from the class-sum "
+                     "oracle" % (tag, FULL_LOG, impl))
+            if impl == "fused" and route != "dense":
+                fail("%s MSM 2^%d: the dense driver took route %r"
+                     % (tag, FULL_LOG, route))
+        ran = {k for k in kernels.ALL if counts[0][k.name]}
+        if ran != expect[impl]:
+            fail("%s MSM, msm_impl=%r, launched %s; expected %s" % (
+                tag, impl, sorted(k.name for k in ran),
+                sorted(k.name for k in expect[impl])))
+        best = min(times[1:])
+        log("  %s MSM 2^%d msm_impl=%r (c=%d, route %s): exact; times %s s;"
+            " min %.4f s = %.1f points/s; launches %s" % (
+                tag, FULL_LOG, impl, c, route, [round(t, 4) for t in times],
+                best, n / best, json.dumps({k: v for k, v in
+                                            counts[0].items() if v})))
+        out[impl] = {"c": c, "route": route, "seconds": times,
+                     "points_per_s": n / best, "launches": counts[0]}
+    return out
 
 
 def msm_stages(points, words, c, g2):
@@ -593,6 +644,200 @@ def phase_k4(rng):
     return rec
 
 
+# ---------------------------------------------------------------- phase 2c
+
+def fold_check_buckets(base, rng, g2):
+    """CHECK_POINTS buckets whose fold meets the completeness cases: a run
+    of equal buckets (P + P in the running sums), buckets followed by
+    their negations (P + (-P)), identities and a run of empty buckets."""
+    B, _ = test_points(base, CHECK_POINTS, rng, g2)
+    e = CHECK_POINTS // 16
+    B[e:e + 64] = B[e:e + 1]
+    B[2 * e:2 * e + 64:2] = negate(B[2 * e + 1:2 * e + 65:2])
+    B[4 * e:4 * e + e // 2] = curve.identity(e // 2, g2, DEV)
+    return B.contiguous()
+
+
+def fold_check_schedules(c, g2):
+    """The default K5 schedule and two more that split a window over
+    several blocks (one with a bucket a thread), where c allows them."""
+    out = [fold.fold_schedule(c, g2)]
+    for log_t, log_m in ((4, 3), (5, 0)):
+        try:
+            out.append(fold.fold_schedule(c, g2, log_t, log_m))
+        except ValueError:
+            pass
+    return out
+
+
+def scan_check_inputs(base, rng, g2):
+    """CHECK_POINTS sorted keys with the point index of each, over points
+    with identities and negations: negative keys first (never merging),
+    short random runs, runs of P then -P, a run of one point repeated
+    (P + P), and one run of 8192 elements across many tiles."""
+    P, Q = test_points(base, CHECK_POINTS, rng, g2)
+    X = torch.cat([P, Q]).contiguous()              # Q[128:192] = -P[128:192]
+    n = CHECK_POINTS
+    lengths = [1] * 6 + [2] * 64 + [64, 8192]
+    lengths += list(rng.integers(1, 20, n))
+    keys = np.repeat(np.arange(len(lengths)), lengths)[:n] - 6
+    keys[:6] = [-2, -2, -1, -1, -1, -1]
+    idx = rng.integers(0, 2 * n, n)
+    idx[6:134:2] = 128 + np.arange(64)              # P ...
+    idx[7:135:2] = n + 128 + np.arange(64)          # ... then -P
+    idx[134:198] = 777
+    return X, torch.from_numpy(keys).to(DEV), torch.from_numpy(idx).to(DEV)
+
+
+def phase_fused_kernels(rng):
+    """K5 and K6 against their plain versions, bit for bit, on the edge
+    cases and at the 2^20-MSM shapes (timed); K5 against the pairfold; K7
+    against its plain version, every op."""
+    log("== phase 2c: K5 bucket_fold, K6 seg_scan, K7 int_probe vs plain "
+        "versions")
+    rec = {}
+    c = msm.best_c(1 << FULL_LOG)
+    nw = msm.n_windows(c)
+    plain_scan = (lambda P, k, i, g, s: fold.seg_scan_tile_plain(P, k, i, g, s))
+    for g2 in (False, True):
+        tag = "g2" if g2 else "g1"
+        k5, k6 = kernels.BUCKET_FOLD[g2], kernels.SEG_SCAN[g2]
+        pb = point_bytes(g2)
+        _, base = base_points(g2)
+        # edge cases: 16 windows of CHECK_POINTS / 16 buckets
+        B = fold_check_buckets(base, rng, g2)
+        cf = CHECK_POINTS.bit_length() - 5
+        errs5 = []
+        for sched in fold_check_schedules(cf, g2):
+            errs5.append(same("K5 %s (16 x 2^%d, schedule %s)" % (
+                k5.name, cf, sched), kernels.bucket_fold(B, 16, cf, g2,
+                                                         sched),
+                fold.bucket_fold_plain(B, 16, cf, g2, sched)))
+        X, keys, idx = scan_check_inputs(base, rng, g2)
+        sched = fold.scan_schedule(g2)
+        errs6 = [same("K6 %s (one launch)" % k6.name,
+                      kernels.seg_scan_tiles(X, keys, idx, g2),
+                      fold.seg_scan_tile_plain(X, keys, idx, g2, sched))]
+        got = msm_scan.seg_scan(X, keys, idx, g2)
+        errs6.append(same("K6 %s (all levels, K1 carries)" % k6.name, got,
+                          msm_scan.seg_scan(X, keys, idx, g2,
+                                            tiles=plain_scan,
+                                            add=curve.point_add_plain)))
+        # the long run's last element against a host sum
+        to_host = curve.tensor_to_g2 if g2 else curve.tensor_to_g1
+        run = (keys == keys[198 + 64]).nonzero().squeeze(1)
+        host = to_host(X[idx[run]])
+        want = None
+        for pt in host:
+            want = bn254.add(want, pt)
+        if to_host(got[run[-1:]])[0] != want:
+            fail("K6 %s: the %d-element run differs from its host sum"
+                 % (k6.name, run.numel()))
+        log("  %-34s a %d-element run over %d tiles equals its host sum"
+            % (k6.name, run.numel(), run.numel() // (sched[1] << sched[0])))
+
+        # the generic window step doubles one accumulator (K2, one lane)
+        k2 = kernels.POINT_DOUBLE[g2]
+        one = base[:1].contiguous()
+        ms, got = cuda_ms(lambda: kernels.point_double(one, g2))
+        same("K2 %s (one lane)" % k2.name, got,
+             curve.point_double_plain(one, g2))
+        rec_k2 = dict(one_lane_ms=ms, one_lane_bound_ms=bound_ms(
+            2 * pb, OP_IMAD[("double", g2)])[0])
+        log("  %-16s %-30s kernel %10.4f ms  bound %8.6f ms" % (
+            k2.name, "1 lane (generic window step)", ms,
+            rec_k2["one_lane_bound_ms"]))
+
+        # the fold of a 2^20-point MSM: nw windows of 2^c buckets
+        dense = base[torch.from_numpy(rng.integers(0, 256, nw << c)).to(
+            DEV)].contiguous()
+        ms, got = cuda_ms(lambda: kernels.bucket_fold(dense, nw, c, g2))
+        plain_ms, want = cuda_ms(lambda: fold.bucket_fold_plain(
+            dense, nw, c, g2, fold.fold_schedule(c, g2)), warm=False)
+        shape5 = "%d windows x 2^%d buckets" % (nw, c)
+        errs5.append(same("K5 %s (%s)" % (k5.name, shape5), got, want))
+        pf_ms, pf = cuda_ms(lambda: msm.pairfold(dense, nw, c, g2), reps=3)
+        if to_host(pf) != to_host(got):
+            fail("K5 %s and the pairfold differ at %s" % (k5.name, shape5))
+        b5 = bound_ms(dense.numel() * 4 + nw * pb,
+                      nw * (2 * (1 << c) - 3) * OP_IMAD[("add", g2)])
+        rec[k5.name] = dict(max_abs_err=max(errs5), ms=ms, plain_ms=plain_ms,
+                            bound_ms=b5[0], bound_by=b5[1], shape=shape5,
+                            pairfold_ms=pf_ms)
+        rec[k2.name] = rec_k2
+        log("  %-16s %-30s kernel %10.4f ms  plain %10.2f ms  bound "
+            "%8.4f ms (%s); pairfold %8.4f ms on the same buckets"
+            % (k5.name, shape5, ms, plain_ms, b5[0], b5[1], pf_ms))
+        del dense, got, want, pf
+
+        # the scan of a 2^20-point MSM: its sorted nonzero digits
+        points = base.repeat((1 << FULL_LOG) // 256, *([1] * (base.dim() - 1)))
+        words = torch.from_numpy(ints_to_words_np(random_scalars(
+            1 << FULL_LOG, rng))).to(DEV)
+        keys, src = msm.sorted_keys(msm.window_digits(words, c))
+        ms, got = cuda_ms(lambda: kernels.seg_scan_tiles(points, keys, src,
+                                                         g2))
+        m = 1 << SCAN_PLAIN_LOG
+        ks, ss = keys[:m].contiguous(), src[:m].contiguous()
+        plain_ms, want = cuda_ms(lambda: fold.seg_scan_tile_plain(
+            points, ks, ss, g2, sched), warm=False)
+        errs6.append(same("K6 %s (first 2^%d elements)" % (
+            k6.name, SCAN_PLAIN_LOG), kernels.seg_scan_tiles(
+                points, ks, ss, g2), want))
+        n6 = keys.numel()
+        merges = int((keys[1:] == keys[:-1]).sum())
+        b6 = bound_ms(n6 * (16 + 2 * pb), merges * OP_IMAD[("add", g2)])
+        shape6 = "%d keys of 2^%d scalars, c=%d" % (n6, FULL_LOG, c)
+        rec[k6.name] = dict(max_abs_err=max(errs6), ms=ms, plain_ms=plain_ms,
+                            bound_ms=b6[0], bound_by=b6[1], shape=shape6,
+                            plain_shape="first 2^%d keys" % SCAN_PLAIN_LOG)
+        log("  %-16s %-30s kernel %10.4f ms  plain %10.2f ms (2^%d keys)  "
+            "bound %8.4f ms (%s, %d adds)" % (
+                k6.name, shape6, ms, plain_ms, SCAN_PLAIN_LOG, b6[0], b6[1],
+                merges))
+        del points, words, keys, src, got, want, ks, ss
+        torch.cuda.empty_cache()
+
+    # K7: every op at the probe's size
+    k7 = kernels.INT_PROBE
+    errs7, rates = [], {}
+    for op in int_probe.OPS:
+        x, y = probe.inputs(op, probe.N, DEV)
+        ms, got = probe.measure(op, x, y, probe.ITERS)
+        t0 = time.perf_counter()
+        want = int_probe.int_probe_plain(op, x, y, probe.ITERS)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        if op == 'f32_fma':
+            a, b = got.view(torch.float32), want.view(torch.float32)
+            rel = float(((a - b).abs() / b.abs().clamp(min=1e-30)).max())
+            if not rel <= int_probe.F32_RTOL:
+                fail("K7 f32_fma: relative error %g above %g"
+                     % (rel, int_probe.F32_RTOL))
+            log("  K7 %-14s within relative %.3g of the plain version"
+                % (op, rel))
+        else:
+            errs7.append(same("K7 %s" % op, got, want))
+        rates[op] = probe.N * probe.ITERS * int_probe.CHAIN / (ms * 1e-3)
+        log("  K7 %-14s kernel %9.4f ms = %10.1f Gop/s  plain %9.1f ms"
+            % (op, ms, rates[op] / 1e9, plain_ms))
+        if op == 'u32_mul_wide':
+            n_imad = 2 * probe.N * probe.ITERS * int_probe.CHAIN
+            b7 = bound_ms(12 * probe.N, n_imad)
+            rec[k7.name] = dict(
+                max_abs_err=0, ms=ms, plain_ms=plain_ms, bound_ms=b7[0],
+                bound_by=b7[1], shape="u32_mul_wide, %d x %d x %d" % (
+                    probe.N, probe.ITERS, int_probe.CHAIN))
+    rec[k7.name]["max_abs_err"] = max(errs7)
+    wide = 2 * rates['u32_mul_wide']
+    log("  K7 u32_mul_wide: %.4g IMAD/s (2 per product) = %.3f of the "
+        "%.4g IMAD/s every bound assumes; u32_mul %.4g/s, u32_add %.4g/s"
+        % (wide, wide / IMAD_PER_S, IMAD_PER_S,
+           rates['u32_mul'], rates['u32_add']))
+    rec[k7.name]["rates"] = rates
+    return rec
+
+
 # ---------------------------------------------------------------- phase 3
 
 def phase_fixture_setup():
@@ -723,12 +968,67 @@ def phase_full_path():
     t_verify = time.perf_counter() - t0
     log("  both proofs verify, the tampered one does not (%.2f s for three"
         " host verifications)" % t_verify)
+    log("== phase 6b: the same witness through msm_impl 'fused' and "
+        "'generic'")
+    other = {}
+    for impl in ("fused", "generic"):
+        ctx_i = ProverContext(kp.pk, cs, DEV, qap=kp.qap, msm_impl=impl)
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        proof = ctx_i.prove(cs.values)
+        dt = time.perf_counter() - t0
+        launches = launch_counts()
+        if proof.to_json() != proofs[0].to_json():
+            fail("msm_impl=%r: the 2^%d proof differs from the 'red' proof"
+                 % (impl, log_n))
+        if not kp.vk.verify(proof):
+            fail("msm_impl=%r: the 2^%d proof does not verify" % (impl,
+                                                                 log_n))
+        log("  msm_impl=%r: %.3f s, JSON equal to the 'red' proof, "
+            "verifies; routes %s; phases %s; launches %s" % (
+                impl, dt, ctx_i.last_routes, json.dumps(
+                    {k: round(v, 4) for k, v in ctx_i.last_profile.items()}),
+                json.dumps({k: v for k, v in launches.items() if v})))
+        other[impl] = {"seconds": dt, "routes": ctx_i.last_routes,
+                       "profile": ctx_i.last_profile, "launches": launches}
     return {"constraints": cs.num_constraints, "m": kp.qap.domain_size,
             "build_seconds": t_build, "setup_seconds": t_setup,
             "setup_profile": kp.profile, "setup_launches": setup_launches,
             "context_seconds": t_ctx, "prove_seconds": seconds,
             "prove_profiles": profiles, "prove_launches": prove_launches,
-            "verify_seconds": t_verify}
+            "verify_seconds": t_verify, "msm_impls": other}
+
+
+# ---------------------------------------------------------------- phase 7
+
+def phase_entry_points():
+    """The bench in its four modes, each as ``python -m``, and the probe's
+    main in this process (its K7 launches are the probe path's)."""
+    log("== phase 7: entry points")
+    out = {}
+    for mode in bench.MODES:
+        env = dict(os.environ, BENCH_MSM_SIZE="16", BENCH_MSM_MODE=mode)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "ethsnarks_tpu_torch.bench"], cwd=ROOT,
+            env=env, capture_output=True, text=True, timeout=600)
+        lines = [ln for ln in proc.stdout.splitlines()
+                 if ln.startswith('{"metric"')]
+        if proc.returncode != 0 or not lines or \
+                "correct=True" not in lines[-1]:
+            fail("bench mode %s: rc %d\n%s%s" % (
+                mode, proc.returncode, proc.stdout[-2000:],
+                proc.stderr[-2000:]))
+        out[mode] = json.loads(lines[-1])
+        log("  bench %-10s %.1f s: %s" % (mode, time.perf_counter() - t0,
+                                          lines[-1]))
+    kernels.reset_counts()
+    probe.main()
+    launches = launch_counts()
+    if launches[kernels.INT_PROBE.name] == 0:
+        fail("the probe did not launch K7")
+    out["probe_launches"] = launches
+    return out
 
 
 # ---------------------------------------------------------------- main
@@ -750,7 +1050,8 @@ def main():
     log("  kernels built in %.1f s; compiler report:" % (
         time.perf_counter() - t0))
     for line in _build.build_log().splitlines():
-        if "Used" in line or "stack frame" in line or "Compiling entry" in line:
+        if "Used" in line or "stack frame" in line or \
+                "Compiling entry" in line or "Function properties" in line:
             log("    " + line.strip())
 
     rng = np.random.default_rng(SEED)
@@ -759,23 +1060,41 @@ def main():
     rec = phase_kernels(rng, sorted(set(ctx.c.values())))
     card_state("after phase 2")
     rec.update(phase_k4(rng))
+    for name, r in phase_fused_kernels(rng).items():
+        rec.setdefault(name, {}).update(r)
+    card_state("after phase 2c")
     fixture_setup = phase_fixture_setup()
     launches, profiles = phase_prove(ctx)
     log("== phase 5: full size")
     card_state("before the MSMs")
-    full = {"msm_g1": phase_msm(False, rng), "msm_g2": phase_msm(True, rng),
-            "transform": phase_transform(rng)}
+    full = {}
+    for g2 in (False, True):
+        tag = "msm_g2" if g2 else "msm_g1"
+        full[tag], inputs = phase_msm(g2, rng)
+        log("== phase 5b: %s through the dense and scan drivers" % tag)
+        full[tag + "_routes"] = phase_msm_routes(g2, *inputs)
+        del inputs
+        torch.cuda.empty_cache()
+    full["transform"] = phase_transform(rng)
     log("  full-size results: %s" % json.dumps(full))
     log("  fixture prove profiles: %s" % json.dumps(profiles))
     path = phase_full_path()
+    card_state("after phase 6")
+    entry = phase_entry_points()
     card_state("at the end")
     log("  full-path results: %s" % json.dumps(
-        dict(path, fixture_setup=fixture_setup)))
-    # "launches": the 2^20 path (K1-K3 over its two proofs, K4 in its
-    # setup); "fixture_launches": the fixture's two proofs and its setup
-    main_launches = dict(path["prove_launches"],
-                         **{k.name: path["setup_launches"][k.name]
-                            for k in kernels.SETUP})
+        dict(path, fixture_setup=fixture_setup), default=str))
+    # launches by path: the 2^20 setup (K4), its two 'red' proofs (K1-K3),
+    # its 'fused' and 'generic' proofs and the 5b MSMs (K1-K3, K5, K6),
+    # and the probe (K7); "launches" is their sum
+    by_path = {"setup_2^20": path["setup_launches"],
+               "prove_2^20_red_x2": path["prove_launches"],
+               "probe": entry["probe_launches"]}
+    for impl, r in path["msm_impls"].items():
+        by_path["prove_2^20_" + impl] = r["launches"]
+    for tag in ("msm_g1", "msm_g2"):
+        for impl, r in full[tag + "_routes"].items():
+            by_path["%s_2^20_%s" % (tag, impl)] = r["launches"]
     fixture_launches = dict(launches,
                             **{k.name: fixture_setup["launches"][k.name]
                                for k in kernels.SETUP})
@@ -783,13 +1102,21 @@ def main():
     out = []
     for k in kernels.ALL:
         r = rec[k.name]
+        per_path = {p: c[k.name] for p, c in by_path.items() if c[k.name]}
         out.append({"name": k.name, "route": k.route, "source": k.source,
-                    "replaces": k.replaces, "launches": main_launches[k.name],
+                    "replaces": k.replaces,
+                    "launches": sum(per_path.values()),
+                    "launches_by_path": per_path,
                     "fixture_launches": fixture_launches[k.name],
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"], "library_ms": None,
                     "shape": r["shape"]})
+        out[-1].update({key: r[key] for key in ("one_lane_ms", "pairfold_ms",
+                                                "plain_shape", "rates")
+                        if key in r})
+        if not out[-1]["launches"]:
+            fail("kernel %s was launched on no main path" % k.name)
     log("total %.1f s" % (time.perf_counter() - t_start))
     print(json.dumps({"kernels": out}))
     print(smi)

@@ -119,6 +119,19 @@ __device__ __forceinline__ point<F> rcb_double(const point<F>& p) {
     return {x3, y3, z3};
 }
 
+// The identity (0, 1, 0) in Montgomery words.
+__device__ __forceinline__ void set_identity(point<fq>& p) {
+    p.x = fq{};
+    p.y = fq_one();
+    p.z = fq{};
+}
+
+__device__ __forceinline__ void set_identity(point<fq2>& p) {
+    p.x = fq2{};
+    p.y = fq2{fq_one(), fq{}};
+    p.z = fq2{};
+}
+
 // Point i of a contiguous (n, 3[, 2], 8) word tensor, moved as 16-byte
 // vectors (rows are 96 or 192 bytes, so every row start is 16-aligned).
 template <class P>

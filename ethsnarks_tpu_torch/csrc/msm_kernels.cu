@@ -26,8 +26,10 @@
 // integer carries, not a matrix product.
 //
 // Every launcher returns cudaGetLastError() after the launch; the Python
-// wrapper raises on a non-zero value.  The setup's K4 (setup_kernels.cu) is
-// included at the end, so every kernel of the port is one library.
+// wrapper raises on a non-zero value.  The setup's K4 (setup_kernels.cu)
+// and the fused and scan MSMs' K5 and K6 (msm_fused_kernels.cu) are
+// included at the end, so every point kernel of the port is one library
+// (the probe K7, probe_kernels.cu, is a second one).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -118,3 +120,7 @@ ESN_LAUNCHERS(g2, fq2)
 
 // K4 fixed_base_mul of the setup: its own source, built into this library.
 #include "setup_kernels.cu"
+
+// K5 bucket_fold and K6 seg_scan of the fused and scan MSMs: their own
+// source, built into this library.
+#include "msm_fused_kernels.cu"

@@ -40,18 +40,6 @@ namespace esn {
 
 constexpr int kSetupThreads = 128;
 
-__device__ __forceinline__ void set_identity(point<fq>& p) {
-    p.x = fq{};
-    p.y = fq_one();
-    p.z = fq{};
-}
-
-__device__ __forceinline__ void set_identity(point<fq2>& p) {
-    p.x = fq2{};
-    p.y = fq2{fq_one(), fq{}};
-    p.z = fq2{};
-}
-
 // table: (n_win << c) points; scalars: (n, 8) little-endian 32-bit words.
 template <class F>
 __global__ void __launch_bounds__(kSetupThreads)

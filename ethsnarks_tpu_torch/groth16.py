@@ -9,10 +9,11 @@ stay on the device in projective form and feed the prover directly.
 
 One proof: one witness upload, the witness map (:mod:`.qap`), window digits
 of H and of the witness columns of the A, B and L queries, four Pippenger
-MSMs (:mod:`.ops.msm`: H, A and L in G1, B in G2) on the hand-written
-kernels, and host finalisation (alpha + A, beta + B, H + L).  nozk proofs
-carry no blinding and are deterministic: the same witness gives the
-reference host prover's exact proof.
+MSMs (H, A and L in G1, B in G2) on the hand-written kernels, by the MSM
+design that ``msm_impl`` names (:class:`ProverContext`), and host
+finalisation (alpha + A, beta + B, H + L).  nozk proofs carry no blinding
+and are deterministic: the same witness gives the reference host prover's
+exact proof, whatever the MSM design.
 """
 
 import secrets
@@ -23,7 +24,7 @@ import torch
 from . import resolve_device
 from .bn254 import G1_GEN, G2_GEN, add
 from .field import SNARK_SCALAR_FIELD
-from .ops import curve
+from .ops import curve, msm_dense, msm_scan
 from .ops.batch_exp import BatchExp
 from .ops.fp import ints_to_words_np
 from .ops.msm import best_c, msm_g1, msm_g2, window_digits
@@ -155,12 +156,25 @@ def generator(cs, rng=None, device=None, zk=False):
     return Keypair(pk, vk, _spans(marks), qap)
 
 
+MSM_IMPLS = ('auto', 'red', 'fused', 'generic')
+
+
 class ProverContext(object):
     """Per-circuit proving state: the key's query points stay on the device
     across proofs, with the QAP's COO matrices and NTT constants (``qap``:
-    one already compiled for ``cs`` on this device, else built here)."""
+    one already compiled for ``cs`` on this device, else built here).
 
-    def __init__(self, pk, cs, device=None, qap=None):
+    msm_impl (``ethsnarks_tpu/groth16.py:300-310``): 'auto' and 'red', the
+    sort + segmented-sum MSM of :mod:`.ops.msm`; 'fused', the dense
+    all-windows MSM of :mod:`.ops.msm_dense` (with its fallbacks to the scan
+    MSM); 'generic', the scan MSM of :mod:`.ops.msm_scan` with the generic
+    window step.  All give the same proof."""
+
+    def __init__(self, pk, cs, device=None, qap=None, msm_impl='auto'):
+        if msm_impl not in MSM_IMPLS:
+            raise ValueError("msm_impl %r: one of %s"
+                             % (msm_impl, ", ".join(MSM_IMPLS)))
+        self.msm_impl = msm_impl
         self.device = resolve_device(device)
         self.pk = pk.to(self.device)
         if qap is not None and qap.device != self.device:
@@ -177,11 +191,21 @@ class ProverContext(object):
                       b=best_c(self.pk.b_idx.shape[0]),
                       l=best_c(nv - ni - 1))
         self.last_profile = None
+        self.last_routes = None
+
+    def _msm(self, points, digits, c, g2):
+        """One MSM by ``msm_impl`` -> (host affine point, route)."""
+        if self.msm_impl == 'fused':
+            return msm_dense.msm(points, digits, c, g2)
+        if self.msm_impl == 'generic':
+            return (msm_scan.msm_g2 if g2 else msm_scan.msm_g1)(
+                points, digits, c), 'scan'
+        return (msm_g2 if g2 else msm_g1)(points, digits, c), 'red'
 
     def prove(self, witness_values, blind=False):
         """witness_values: the full assignment [1, inputs.., aux..] as ints.
         Returns a :class:`Proof`; per-phase wall seconds are left in
-        ``self.last_profile``."""
+        ``self.last_profile`` and each MSM's route in ``self.last_routes``."""
         if blind:
             raise NotImplementedError(
                 "r/s blinding is not ported: this prover makes nozk proofs")
@@ -202,16 +226,18 @@ class ProverContext(object):
         b_d = window_digits(w_words[pk.b_idx], c['b'])
         l_d = window_digits(w_words[self.l_idx], c['l'])
         mark('digits')
-        h_eval = msm_g1(pk.h_pts, h_d, c['h'])
+        routes = {}
+        h_eval, routes['h'] = self._msm(pk.h_pts, h_d, c['h'], False)
         mark('h_msm')
-        a_eval = msm_g1(pk.a_pts, a_d, c['a'])
+        a_eval, routes['a'] = self._msm(pk.a_pts, a_d, c['a'], False)
         mark('a_msm')
-        b_eval = msm_g2(pk.b_pts, b_d, c['b'])
+        b_eval, routes['b'] = self._msm(pk.b_pts, b_d, c['b'], True)
         mark('b_msm_g2')
-        l_eval = msm_g1(pk.l_pts, l_d, c['l'])
+        l_eval, routes['l'] = self._msm(pk.l_pts, l_d, c['l'], False)
         mark('l_msm')
         proof = Proof(A=add(pk.alpha_g1, a_eval), B=add(pk.beta_g2, b_eval),
                       C=add(h_eval, l_eval), input=w[1:1 + ni])
         mark('finalise')
         self.last_profile = _spans(marks)
+        self.last_routes = routes
         return proof

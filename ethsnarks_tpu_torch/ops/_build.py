@@ -1,12 +1,20 @@
-"""Build and load the CUDA kernels (``csrc/msm_kernels.cu``, which includes
-``csrc/setup_kernels.cu``) on first use.
+"""Build and load the CUDA kernels on first use.
 
-The source is compiled by ``nvcc`` into a shared library with a plain C
-interface under ``build/ethsnarks_tpu_torch/`` at the repo root
-(git-ignored), named by a hash of the sources so an edited kernel rebuilds,
-and loaded with ``ctypes``.  ``torch.utils.cpp_extension.load`` is not
-used: a source that includes PyTorch's headers takes minutes to compile, a
-plain one seconds.
+Two libraries, each one ``nvcc`` run, started together when both are
+missing:
+
+- ``msm_kernels`` from ``csrc/msm_kernels.cu``, which includes
+  ``csrc/setup_kernels.cu`` and ``csrc/msm_fused_kernels.cu``: every point
+  kernel (K1-K6);
+- ``probe_kernels`` from ``csrc/probe_kernels.cu``: the throughput probe
+  (K7).
+
+Each source is compiled into a shared library with a plain C interface
+under ``build/ethsnarks_tpu_torch/`` at the repo root (git-ignored), named
+by a hash of the flags and sources so an edited kernel rebuilds, and
+loaded with ``ctypes``.  ``torch.utils.cpp_extension.load`` is not used: a
+source that includes PyTorch's headers takes minutes to compile, a plain
+one seconds.
 """
 
 import ctypes
@@ -17,26 +25,40 @@ import subprocess
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
-SOURCE = "msm_kernels"
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "ethsnarks_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# name -> argtypes of every C entry point
+# library -> {C entry point: argtypes}
 _VOID = ctypes.c_void_p
 _INT = ctypes.c_int
-ENTRY_POINTS = {
-    "esn_point_add_g1": [_VOID, _VOID, _VOID, _VOID, _VOID, _INT, _VOID],
-    "esn_point_add_g2": [_VOID, _VOID, _VOID, _VOID, _VOID, _INT, _VOID],
-    "esn_point_double_g1": [_VOID, _VOID, _INT, _VOID],
-    "esn_point_double_g2": [_VOID, _VOID, _INT, _VOID],
-    "esn_horner_g1": [_VOID, _VOID, _INT, _INT, _INT, _VOID],
-    "esn_horner_g2": [_VOID, _VOID, _INT, _INT, _INT, _VOID],
-    "esn_fixed_base_mul_g1": [_VOID, _VOID, _VOID, _INT, _INT, _INT, _VOID],
-    "esn_fixed_base_mul_g2": [_VOID, _VOID, _VOID, _INT, _INT, _INT, _VOID],
+LIBRARIES = {
+    "msm_kernels": {
+        "esn_point_add_g1": [_VOID, _VOID, _VOID, _VOID, _VOID, _INT, _VOID],
+        "esn_point_add_g2": [_VOID, _VOID, _VOID, _VOID, _VOID, _INT, _VOID],
+        "esn_point_double_g1": [_VOID, _VOID, _INT, _VOID],
+        "esn_point_double_g2": [_VOID, _VOID, _INT, _VOID],
+        "esn_horner_g1": [_VOID, _VOID, _INT, _INT, _INT, _VOID],
+        "esn_horner_g2": [_VOID, _VOID, _INT, _INT, _INT, _VOID],
+        "esn_fixed_base_mul_g1": [_VOID, _VOID, _VOID, _INT, _INT, _INT,
+                                  _VOID],
+        "esn_fixed_base_mul_g2": [_VOID, _VOID, _VOID, _INT, _INT, _INT,
+                                  _VOID],
+        "esn_bucket_fold_g1": [_VOID, _VOID, _VOID, _VOID, _INT, _INT, _INT,
+                               _INT, _INT, _VOID],
+        "esn_bucket_fold_g2": [_VOID, _VOID, _VOID, _VOID, _INT, _INT, _INT,
+                               _INT, _INT, _VOID],
+        "esn_seg_scan_g1": [_VOID, _VOID, _VOID, _VOID, _INT, _INT, _INT,
+                            _VOID],
+        "esn_seg_scan_g2": [_VOID, _VOID, _VOID, _VOID, _INT, _INT, _INT,
+                            _VOID],
+    },
+    "probe_kernels": {
+        "esn_int_probe": [_INT, _VOID, _VOID, _VOID, _INT, _INT, _VOID],
+    },
 }
 
-_lib = None
+_libs = {}
 
 
 def _nvcc():
@@ -47,53 +69,68 @@ def _nvcc():
                        "machine with the CUDA toolkit")
 
 
-def _stem():
-    """build/ethsnarks_tpu_torch/msm_kernels-<hash of flags and sources>."""
+def _stem(lib):
+    """build/ethsnarks_tpu_torch/<lib>-<hash of flags and sources>."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in sorted(os.listdir(CSRC)):
         with open(os.path.join(CSRC, name), "rb") as fh:
             h.update(name.encode() + fh.read())
-    return os.path.join(BUILD_DIR, "%s-%s" % (SOURCE, h.hexdigest()[:16]))
+    return os.path.join(BUILD_DIR, "%s-%s" % (lib, h.hexdigest()[:16]))
 
 
-def _compile(out):
-    """One nvcc run into ``out``.  The compiler's report (registers and
-    spills per kernel) is kept beside it as a .log."""
+def _compile(libs):
+    """One nvcc run per library, all started together.  Each compiler's
+    report (registers and spills per kernel) is kept beside its library
+    as a .log."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = out + ".tmp%d" % os.getpid()
-    proc = subprocess.run(
-        [_nvcc()] + NVCC_FLAGS + ["-o", tmp,
-                                  os.path.join(CSRC, SOURCE + ".cu")],
-        capture_output=True, text=True)
-    with open(out[:-3] + ".log", "w") as fh:
-        fh.write(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError("nvcc failed for %s.cu:\n%s%s"
-                           % (SOURCE, proc.stdout, proc.stderr))
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    runs = []
+    for lib in libs:
+        out = _stem(lib) + ".so"
+        tmp = out + ".tmp%d" % os.getpid()
+        proc = subprocess.Popen(
+            [nvcc] + NVCC_FLAGS + ["-o", tmp, os.path.join(CSRC, lib + ".cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        runs.append((lib, out, tmp, proc))
+    failed = []
+    for lib, out, tmp, proc in runs:
+        report = proc.communicate()[0]
+        with open(out[:-3] + ".log", "w") as fh:
+            fh.write(report)
+        if proc.returncode != 0:
+            failed.append("nvcc failed for %s.cu:\n%s" % (lib, report))
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
 
 
 def build():
-    """Compile the kernels unless already built, load them; returns the
-    ctypes library."""
-    global _lib
-    if _lib is None:
-        out = _stem() + ".so"
-        if not os.path.exists(out):
-            _compile(out)
-        lib = ctypes.CDLL(out)
-        for fn, argtypes in ENTRY_POINTS.items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-        _lib = lib
-    return _lib
+    """Compile the libraries not built yet and load both; returns
+    {library: ctypes library}."""
+    if len(_libs) < len(LIBRARIES):
+        _compile([lib for lib in LIBRARIES
+                  if not os.path.exists(_stem(lib) + ".so")])
+        for lib, entry_points in LIBRARIES.items():
+            handle = ctypes.CDLL(_stem(lib) + ".so")
+            for fn, argtypes in entry_points.items():
+                getattr(handle, fn).argtypes = argtypes
+                getattr(handle, fn).restype = ctypes.c_int
+            _libs[lib] = handle
+    return _libs
 
 
 def build_log():
-    """The compiler's report (after build)."""
-    with open(_stem() + ".log") as fh:
-        return fh.read()
+    """The compilers' reports (after build)."""
+    out = []
+    for lib in LIBRARIES:
+        with open(_stem(lib) + ".log") as fh:
+            out.append(fh.read())
+    return "".join(out)
 
 
 def function(name):
-    return getattr(build(), name)
+    for lib, entry_points in LIBRARIES.items():
+        if name in entry_points:
+            return getattr(build()[lib], name)
+    raise KeyError("no CUDA entry point %r" % name)

@@ -129,10 +129,11 @@ def point_add_plain(P, Q, ia=None, ib=None, g2=False):
     pa = P if ia is None else P[ia]
     if ib is None:
         return add_points(pa, Q[:pa.shape[0]], g2)
-    qb = Q[ib.clamp(min=0)]
-    out = add_points(pa, qb, g2)
-    keep = (ib < 0).reshape((-1,) + (1,) * (P.dim() - 1))
-    return torch.where(keep, pa, out)
+    out = pa.clone()
+    sel = torch.nonzero(ib >= 0).squeeze(1)      # the lanes that add
+    if sel.numel():
+        out[sel] = add_points(pa[sel], Q[ib[sel]], g2)
+    return out
 
 
 def horner_plain(W, c, g2=False):

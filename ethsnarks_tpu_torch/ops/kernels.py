@@ -1,21 +1,25 @@
-"""One wrapper per CUDA kernel of ``csrc/msm_kernels.cu`` (K1-K3) and
-``csrc/setup_kernels.cu`` (K4).
+"""One wrapper per CUDA kernel: K1-K3 of ``csrc/msm_kernels.cu``, K4 of
+``csrc/setup_kernels.cu``, K5-K6 of ``csrc/msm_fused_kernels.cu`` and K7 of
+``csrc/probe_kernels.cu``.
 
 A wrapper checks dtype, shape and contiguity, then dispatches on where the
 tensors lie: on the CPU it runs the kernel's plain PyTorch twin
-(:mod:`.curve`), on a CUDA device it launches the kernel on the current
-stream, raising if the launch reports an error.  There is no fallback from
-the card to the twin.  Each kernel keeps a launch count (``.launches``),
-raised by one per launch on the card and nowhere else.
+(:mod:`.curve`, :mod:`.fold`, :mod:`.int_probe`), on a CUDA device it
+launches the kernel on the current stream, raising if the launch reports
+an error.  There is no fallback from the card to the twin.  Each kernel
+keeps a launch count (``.launches``), raised by one per launch on the card
+and nowhere else.
 """
 
 import torch
 
-from . import curve
+from . import curve, fold, int_probe as probe_ops
 from ._build import function
 
 MSM_SOURCE = "ethsnarks_tpu_torch/csrc/msm_kernels.cu"
 SETUP_SOURCE = "ethsnarks_tpu_torch/csrc/setup_kernels.cu"
+FUSED_SOURCE = "ethsnarks_tpu_torch/csrc/msm_fused_kernels.cu"
+PROBE_SOURCE = "ethsnarks_tpu_torch/csrc/probe_kernels.cu"
 
 
 class Kernel(object):
@@ -38,30 +42,66 @@ class Kernel(object):
 
 
 _MSM_RED = "ethsnarks_tpu/ops/msm_red.py"
+_PALLAS_OPS = "ethsnarks_tpu/ops/pallas_ops.py"
+_PALLAS_MSM = "ethsnarks_tpu/ops/pallas_msm.py"
+
+
+def _at(path, *lines):
+    return ", ".join("%s:%d" % (path, n) for n in lines)
+
+
+# K1 also replaces the v1 adds of the dense halving tree and the scan
+# carries (pallas_ops :230, :456); K2 the v1 doubles of the generic MSM's
+# window step (:390, :482); K3 the fused MSM's window Horner kernels.
 POINT_ADD = {
-    False: Kernel("point_add_g1", "esn_point_add_g1", _MSM_RED + ":171"),
-    True: Kernel("point_add_g2", "esn_point_add_g2", _MSM_RED + ":193"),
+    False: Kernel("point_add_g1", "esn_point_add_g1",
+                  _at(_MSM_RED, 171) + ", " + _at(_PALLAS_OPS, 230)),
+    True: Kernel("point_add_g2", "esn_point_add_g2",
+                 _at(_MSM_RED, 193) + ", " + _at(_PALLAS_OPS, 456)),
 }
 POINT_DOUBLE = {
-    False: Kernel("point_double_g1", "esn_point_double_g1", _MSM_RED + ":249"),
-    True: Kernel("point_double_g2", "esn_point_double_g2", _MSM_RED + ":268"),
+    False: Kernel("point_double_g1", "esn_point_double_g1",
+                  _at(_MSM_RED, 249) + ", " + _at(_PALLAS_OPS, 390)),
+    True: Kernel("point_double_g2", "esn_point_double_g2",
+                 _at(_MSM_RED, 268) + ", " + _at(_PALLAS_OPS, 482)),
 }
-# K3 also replaces _k_double_n_add_red (:454) and its G2 form (:481).
+# K3 also replaces _k_double_n_add_red (:454) and its G2 form (:481): 2^n P
+# + Q is horner over the two windows [Q, P].
 HORNER = {
-    False: Kernel("horner_g1", "esn_horner_g1", _MSM_RED + ":412"),
-    True: Kernel("horner_g2", "esn_horner_g2", _MSM_RED + ":515"),
+    False: Kernel("horner_g1", "esn_horner_g1",
+                  _at(_MSM_RED, 412, 454) + ", "
+                  + _at(_PALLAS_MSM, 190, 348)),
+    True: Kernel("horner_g2", "esn_horner_g2",
+                 _at(_MSM_RED, 481, 515) + ", " + _at(_PALLAS_MSM, 547)),
 }
-_PALLAS_OPS = "ethsnarks_tpu/ops/pallas_ops.py"
 FIXED_BASE_MUL = {
     False: Kernel("fixed_base_mul_g1", "esn_fixed_base_mul_g1",
-                  _PALLAS_OPS + ":230", SETUP_SOURCE),
+                  _at(_PALLAS_OPS, 230), SETUP_SOURCE),
     True: Kernel("fixed_base_mul_g2", "esn_fixed_base_mul_g2",
-                 _PALLAS_OPS + ":456", SETUP_SOURCE),
+                 _at(_PALLAS_OPS, 456), SETUP_SOURCE),
 }
+BUCKET_FOLD = {
+    False: Kernel("bucket_fold_g1", "esn_bucket_fold_g1",
+                  _at(_PALLAS_MSM, 130, 295), FUSED_SOURCE),
+    True: Kernel("bucket_fold_g2", "esn_bucket_fold_g2",
+                 _at(_PALLAS_MSM, 484), FUSED_SOURCE),
+}
+# The reference scans G1 only (_k_scan); its G2 generic MSM scans with the
+# same monoid in XLA.  K6 G2 is that scan on the card.
+SEG_SCAN = {
+    False: Kernel("seg_scan_g1", "esn_seg_scan_g1", _at(_PALLAS_MSM, 56),
+                  FUSED_SOURCE),
+    True: Kernel("seg_scan_g2", "esn_seg_scan_g2", _at(_PALLAS_MSM, 56),
+                 FUSED_SOURCE),
+}
+INT_PROBE = Kernel("int_probe", "esn_int_probe", "tools/probe_vpu.py:25",
+                   PROBE_SOURCE)
 MSM = [POINT_ADD[False], POINT_ADD[True], POINT_DOUBLE[False],
        POINT_DOUBLE[True], HORNER[False], HORNER[True]]
 SETUP = [FIXED_BASE_MUL[False], FIXED_BASE_MUL[True]]
-ALL = MSM + SETUP
+FUSED = [BUCKET_FOLD[False], BUCKET_FOLD[True], SEG_SCAN[False],
+         SEG_SCAN[True]]
+ALL = MSM + SETUP + FUSED + [INT_PROBE]
 
 
 def reset_counts():
@@ -200,4 +240,73 @@ def fixed_base_mul(table, scalars, n_win, c, g2=False):
     FIXED_BASE_MUL[g2].launch(table.data_ptr(), scalars.data_ptr(),
                               out.data_ptr(), n, n_win, int(c),
                               _stream(table.device))
+    return out
+
+
+def bucket_fold(buckets, n_win, c, g2=False, schedule=None):
+    """K5: (n_win * 2^c, *point) window-major buckets -> (n_win, *point)
+    sum_b b * S_b per window.  ``schedule``: (log_t, log_m, log_g) of
+    :func:`.fold.fold_schedule` (default: its default for c)."""
+    _check_points(buckets, g2, "bucket_fold")
+    if n_win < 1 or not 0 <= c <= 24 or buckets.shape[0] != n_win << c:
+        raise ValueError("bucket_fold: %d buckets for n_win=%d, c=%d"
+                         % (buckets.shape[0], n_win, c))
+    if n_win >= 1 << 16:
+        raise ValueError("bucket_fold: %d windows exceed the grid" % n_win)
+    schedule = fold.fold_schedule(c, g2, *(schedule or (None, None))[:2])
+    if not _on_card(buckets):
+        return fold.bucket_fold_plain(buckets, n_win, c, g2, schedule)
+    log_t, log_m, log_g = schedule
+    dev = buckets.device
+    out = torch.empty((n_win,) + curve.point_shape(g2), dtype=torch.int32,
+                      device=dev)
+    part = torch.empty(((2 * n_win) << log_g,) + curve.point_shape(g2),
+                       dtype=torch.int32, device=dev)
+    tickets = torch.zeros(n_win, dtype=torch.int32, device=dev)
+    BUCKET_FOLD[g2].launch(buckets.data_ptr(), out.data_ptr(),
+                           part.data_ptr(), tickets.data_ptr(), n_win, int(c),
+                           log_t, log_m, log_g, _stream(dev))
+    return out
+
+
+def seg_scan_tiles(P, keys, idx=None, g2=False, schedule=None):
+    """K6, one launch: per tile of 2^log_t * items elements, out[j] = the
+    sum of P[idx[j]] (P[j] without ``idx``) over the tile's elements i <= j
+    in j's run of equal keys.  keys: sorted int64 (n,); a negative key
+    never merges.  Runs crossing tiles are finished by
+    :func:`.msm_scan.seg_scan`."""
+    _check_points(P, g2, "seg_scan P")
+    n = keys.shape[0]
+    if keys.dtype != torch.int64 or keys.dim() != 1 or \
+            not keys.is_contiguous() or keys.device != P.device:
+        raise ValueError("seg_scan: expected contiguous int64 (n,) keys on "
+                         "%s, got %s %s" % (P.device, keys.dtype,
+                                            tuple(keys.shape)))
+    _check_index(idx, n, P.device, "seg_scan idx")
+    if idx is None and P.shape[0] < n:
+        raise ValueError("seg_scan: fewer points than keys")
+    if n >= 1 << 31:
+        raise ValueError("seg_scan: %d elements exceed int32" % n)
+    log_t, items = fold.scan_schedule(g2, *(schedule or (None, None)))
+    if not _on_card(P):
+        return fold.seg_scan_tile_plain(P, keys, idx, g2, (log_t, items))
+    out = torch.empty((n,) + curve.point_shape(g2), dtype=torch.int32,
+                      device=P.device)
+    SEG_SCAN[g2].launch(P.data_ptr(), _ptr(idx), keys.data_ptr(),
+                        out.data_ptr(), n, log_t, items, _stream(P.device))
+    return out
+
+
+def int_probe(op, x, y, iters):
+    """K7: every element a <- op(a, b) for ``iters`` chains of
+    :data:`.int_probe.CHAIN` steps; x, y int32 (n,) words (float32 bits
+    for f32_fma)."""
+    probe_ops.check_inputs(op, x, y)
+    if iters < 0:
+        raise ValueError("int_probe: negative iters")
+    if not _on_card(x):
+        return probe_ops.int_probe_plain(op, x, y, iters)
+    out = torch.empty_like(x)
+    INT_PROBE.launch(probe_ops.OPS[op], x.data_ptr(), y.data_ptr(),
+                     out.data_ptr(), x.shape[0], int(iters), _stream(x.device))
     return out

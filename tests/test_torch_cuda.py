@@ -17,7 +17,9 @@ import torch
 from ethsnarks_tpu_torch import bn254
 from ethsnarks_tpu_torch.field import SNARK_SCALAR_FIELD
 from ethsnarks_tpu_torch.groth16 import ProverContext, generator
-from ethsnarks_tpu_torch.ops import curve, kernels, msm
+from ethsnarks_tpu_torch import probe
+from ethsnarks_tpu_torch.ops import curve, fold, int_probe, kernels, msm, \
+    msm_dense, msm_scan
 from ethsnarks_tpu_torch.ops.batch_exp import BatchExp, C, N_WIN
 from ethsnarks_tpu_torch.ops.fp import ints_to_words_np
 from ethsnarks_tpu_torch.serialization import read_pk_binary, \
@@ -123,3 +125,80 @@ def test_setup_reproduces_fixture_key(card, tmp_path):
         assert (tmp_path / "pk.bin").read_bytes() == fh.read()
     with open(os.path.join(FIXTURE, "vk.json")) as fh:
         assert kp.vk.to_json() == fh.read()
+
+
+@pytest.mark.parametrize('g2', [False, True], ids=['g1', 'g2'])
+def test_fold_and_scan_kernels_match_plain(card, g2):
+    """K5 in three schedules (one thread, blocks and tickets), K6 one
+    launch and all levels, against their plain versions on the card."""
+    B = _points(16 << 6, g2, card, 6)
+    for sched in (fold.fold_schedule(6, g2), (2, 2), (3, 0)):
+        full = fold.fold_schedule(6, g2, *sched[:2])
+        got = kernels.bucket_fold(B, 16, 6, g2, sched)
+        torch.cuda.synchronize()
+        assert torch.equal(got, fold.bucket_fold_plain(B, 16, 6, g2, full))
+    rng = np.random.default_rng(7)
+    n = 3000
+    keys = np.sort(rng.integers(0, 200, n))
+    keys[:3] = -1
+    keys[1000:2500] = keys[1000]
+    keys = torch.from_numpy(keys).to(card)
+    idx = torch.from_numpy(rng.integers(0, n, n)).to(card)
+    P = _points(n, g2, card, 8)
+    for sched in (None, (2, 3)):
+        got = kernels.seg_scan_tiles(P, keys, idx, g2, sched)
+        torch.cuda.synchronize()
+        assert torch.equal(got, fold.seg_scan_tile_plain(
+            P, keys, idx, g2, fold.scan_schedule(g2, *(sched or (None,
+                                                                 None)))))
+        assert torch.equal(
+            msm_scan.seg_scan(P, keys, idx, g2, sched),
+            msm_scan.seg_scan(P, keys, idx, g2, sched,
+                              tiles=fold.seg_scan_tile_plain,
+                              add=curve.point_add_plain))
+
+
+def test_int_probe_matches_plain(card):
+    for op in int_probe.OPS:
+        x, y = probe.inputs(op, 1 << 14, card)
+        got = kernels.int_probe(op, x, y, 4)
+        torch.cuda.synchronize()
+        want = int_probe.int_probe_plain(op, x, y, 4)
+        if op == 'f32_fma':
+            a, b = got.view(torch.float32), want.view(torch.float32)
+            assert bool(((a - b).abs() <= int_probe.F32_RTOL * b.abs()).all())
+        else:
+            assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize('g2', [False, True], ids=['g1', 'g2'])
+def test_dense_and_scan_msm_on_card(card, g2):
+    n = 512
+    gen = bn254.G2_GEN if g2 else bn254.G1_GEN
+    pts = [bn254.multiply(gen, j + 1) for j in range(n)]
+    rng = np.random.default_rng(9)
+    scalars = [int.from_bytes(rng.bytes(32), 'little') % bn254.CURVE_ORDER
+               for _ in range(n)]
+    conv = curve.g2_to_tensor if g2 else curve.g1_to_tensor
+    digits = msm.window_digits(torch.from_numpy(
+        ints_to_words_np(scalars)).to(card), 8)
+    want = None
+    for s, p in zip(scalars, pts):
+        want = bn254.add(want, bn254.multiply(p, s))
+    P = conv(pts, card)
+    assert msm_dense.msm(P, digits, 8, g2, min_points=0) == (want, 'dense')
+    for combine in msm_scan.COMBINES:
+        assert msm_scan._to_host(msm_scan.msm_tensor(
+            P, digits, 8, g2, combine), g2) == want
+
+
+def test_prove_fixture_msm_impls_on_card(card):
+    with open(os.path.join(FIXTURE, "r1cs.json")) as fh:
+        cs = r1cs_from_dict(json.load(fh))
+    pk = read_pk_binary(os.path.join(FIXTURE, "pk.bin"))
+    witness = witness_from_json(os.path.join(FIXTURE, "witness.json"))
+    with open(os.path.join(FIXTURE, "proof.json")) as fh:
+        want = fh.read()
+    for impl in ('fused', 'generic'):
+        ctx = ProverContext(pk, cs, msm_impl=impl)
+        assert ctx.prove(witness).to_json() == want

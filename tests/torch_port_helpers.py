@@ -22,3 +22,25 @@ def rand_ints(n, modulus, seed):
     rng = np.random.default_rng(seed)
     return [int.from_bytes(rng.bytes(40), 'little') % modulus
             for _ in range(n)]
+
+
+def affine(pt):
+    """A host point of either package -> plain ints (None = infinity)."""
+    if pt is None:
+        return None
+    if hasattr(pt[0], 'coeffs'):
+        return tuple(tuple(int(c) for c in x.coeffs) for x in pt)
+    return (int(pt[0].n), int(pt[1].n))
+
+
+def host_points(n, g2=False):
+    """(j + 1) * G for j < n, as the JAX package's host points."""
+    from ethsnarks_tpu.bn254 import G1_GEN, G2_GEN, multiply
+    gen = G2_GEN if g2 else G1_GEN
+    return [multiply(gen, j + 1) for j in range(n)]
+
+
+def rand_scalars(n, seed, modulus):
+    rng = np.random.default_rng(seed)
+    return [int.from_bytes(rng.bytes(32), 'little') % modulus
+            for _ in range(n)]
