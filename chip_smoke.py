@@ -7,22 +7,28 @@ Phases (any mismatch fails the run with a non-zero exit):
 
 1. device: the card's name and power limit; build the CUDA kernels (two
    libraries, one nvcc each, started together: ``msm_kernels`` with every
-   point kernel K1-K6, ``probe_kernels`` with K7).
+   point kernel K1-K6, ``probe_kernels`` with K7); each kernel's
+   registers, stack frame and spills from the ptxas report, and its SASS
+   op mix (cuobjdump, where the toolkit has it).
 2. kernels vs twins: every MSM kernel (K1 point_add with and without index
    tensors, K2 point_double, K3 horner; G1 and G2) against its plain
    PyTorch version on the same card tensors, bit for bit: at 2^14 points
-   with identity, P + P and P + (-P) lanes, at the K2/K3 shapes of the
-   fixture prove, and at the shapes a 2^20 MSM gives each kernel, where
-   both are also timed (CUDA events).  Then K4 fixed_base_mul (G1, G2)
+   with identity, P + P and P + (-P) lanes, K1 and K2 also on raw
+   coordinates off the curve chosen for the field core's rare carries, at
+   the K2/K3 shapes of the fixture prove, and at the shapes a 2^20 MSM
+   gives each kernel, where both are also timed (CUDA events).  Then K4
+   fixed_base_mul (G1, G2)
    against its plain version at 2^14 scalars (0, 1, r - 1, scalars with
    zero bytes, every single-nonzero-byte position and value) and against
    host double-and-add on a sample, and at 2^20 uniform scalars, timed.
 2c. K5 bucket_fold and K6 seg_scan (G1, G2) against their plain versions,
    bit for bit, at 2^14 buckets or elements with identity, P + P and
-   P + (-P) steps, empty buckets, one run over many tiles and never-merging
-   negative keys, in several schedules; then at the shapes of a 2^20 MSM,
-   timed (K6's plain version at 2^20 of its 2^24 elements), and K5 timed
-   against the red MSM's pairfold on the same buckets.  K7 int_probe, every
+   P + (-P) steps, empty buckets, never-merging negative keys and (K6) one
+   run over 16 tiles, every prefix of which must equal its host sum, in
+   several schedules; then at the shapes of a 2^20 MSM, timed (K6 also
+   with all its levels of tiles; its plain version at 2^20 of its 2^24
+   elements), and K5 timed against the red MSM's pairfold on the same
+   buckets.  K7 int_probe, every
    op, against its plain version (bit for bit; f32_fma to a relative
    1e-6), with the measured rates.
 3. setup of the fixture: the port's generator on the committed fixture's
@@ -63,7 +69,9 @@ last lines are a JSON ``kernels`` record, the nvidia-smi line, and
 import json
 import os
 import random
+import re
 import resource
+import shutil
 import subprocess
 import sys
 import time
@@ -74,7 +82,8 @@ import torch
 from ethsnarks_tpu_torch import bench, bn254, probe
 from ethsnarks_tpu_torch.cost import IMAD_PER_S, OP_IMAD, bound_ms, \
     point_bytes
-from ethsnarks_tpu_torch.field import CURVE_ORDER, SNARK_SCALAR_FIELD
+from ethsnarks_tpu_torch.field import CURVE_ORDER, FIELD_MODULUS, \
+    SNARK_SCALAR_FIELD
 from ethsnarks_tpu_torch.gadgets import MiMCe7_gadget
 from ethsnarks_tpu_torch.groth16 import ProverContext, generator
 from ethsnarks_tpu_torch.mimc import mimc
@@ -122,18 +131,97 @@ def fail(msg):
 
 def cuda_ms(fn, reps=5, warm=True):
     """(mean CUDA-event ms of reps calls after a warm-up, the warm-up's
-    result); warm=False times one call, the one whose result it returns."""
-    out = fn() if warm else None
+    result); warm=False times one call, the one whose result it returns.
+    A second warm-up call, whose output is freed at once, leaves the
+    allocator a block for the timed calls' outputs, which are freed as
+    they come: no cudaMalloc falls inside the timed window."""
+    if not warm:
+        torch.cuda.synchronize()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        res = fn()
+        t1.record()
+        t1.synchronize()
+        return t0.elapsed_time(t1), res
+    out = fn()
+    fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(reps if warm else 1):
-        res = fn()
+    for _ in range(reps):
+        fn()
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / (reps if warm else 1), \
-        (out if warm else res)
+    return start.elapsed_time(end) / reps, out
+
+
+# ---------------------------------------------------------------- build
+
+def compiler_report(text):
+    """ptxas -v report -> {function: {registers, stack_frame, spill_stores,
+    spill_loads}} (registers for kernels only)."""
+    out, entry, prop = {}, None, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1)
+            out.setdefault(entry, {})
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            prop = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and prop:
+            out.setdefault(prop, {}).update(
+                stack_frame=int(m.group(1)), spill_stores=int(m.group(2)),
+                spill_loads=int(m.group(3)))
+            prop = None
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            out[entry]["registers"] = int(m.group(1))
+    return out
+
+
+def kernel_symbol(k, names):
+    """The mangled name of kernel k's __global__ function among names."""
+    base = "k_" + re.sub(r"_g[12]$", "", k.name)
+    tag = {"_g1": "INS_2fqE", "_g2": "INS_3fq2E"}.get(k.name[-3:], "")
+    return next((name for name in names if base in name and tag in name),
+                None)
+
+
+def sass_mix(lib, symbols):
+    """{symbol: {instructions, IMAD (all forms), IMAD_WIDE, IADD3, LDL,
+    STL}} from cuobjdump -sass of a built library (None where the toolkit
+    has no cuobjdump)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    text = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True).stdout
+    out, cur = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = out.setdefault(m.group(1), dict(
+                instructions=0, IMAD=0, IMAD_WIDE=0, IADD3=0, LDL=0,
+                STL=0)) if m.group(1) in symbols else None
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                     r"([A-Z][A-Z0-9_.]*)", line)
+        if m and cur is not None:
+            op = m.group(1)
+            cur["instructions"] += 1
+            if op.split(".")[0] in cur:
+                cur[op.split(".")[0]] += 1
+            if op.startswith("IMAD.WIDE"):
+                cur["IMAD_WIDE"] += 1
+    return out
 
 
 # ---------------------------------------------------------------- inputs
@@ -183,6 +271,22 @@ def test_points(base, n, rng, g2):
     return P.contiguous(), Q.contiguous()
 
 
+def carry_edge_points(n, g2, rng):
+    """n raw coordinate triples, not on the curve, for the field core's rare
+    carries: every coordinate (each Fq part on G2) holds the Montgomery
+    words of 0, 1, q - 1, q - 2^32, 2^255 mod q, or a random value below q
+    whose low words are all ones."""
+    q = FIELD_MODULUS
+    vals = [0, 1, q - 1, q - (1 << 32), (1 << 255) % q]
+    for k in range(1, 8):
+        vals.append((int.from_bytes(rng.bytes(32), "little")
+                     | ((1 << (32 * k)) - 1)) % q)
+    pick = rng.integers(0, len(vals), n * (6 if g2 else 3))
+    words = ints_to_words_np([vals[i] for i in pick])
+    return torch.from_numpy(words).reshape(
+        (n,) + curve.point_shape(g2)).to(DEV)
+
+
 def same(name, got, want):
     """Max |kernel - plain| over the int32 words; fails unless 0."""
     if got.shape != want.shape:
@@ -228,6 +332,20 @@ def phase_kernels(rng, fixture_cs):
         errs[k_dbl].append(same(
             "K2 point_double_%s" % tag, kernels.point_double(P, g2),
             curve.point_double_plain(P, g2)))
+        # raw triples off the curve that reach the rare carries of the
+        # field core: the formulas are polynomials, so the two still agree
+        E, F = carry_edge_points(n, g2, rng), carry_edge_points(n, g2, rng)
+        errs[k_add].append(same(
+            "K1 point_add_%s (carry edges)" % tag,
+            kernels.point_add(E, F, g2=g2), curve.point_add_plain(E, F, g2=g2)))
+        errs[k_add].append(same(
+            "K1 point_add_%s (carry edges, indices)" % tag,
+            kernels.point_add(E, F, ia, ib, g2),
+            curve.point_add_plain(E, F, ia, ib, g2)))
+        errs[k_dbl].append(same(
+            "K2 point_double_%s (carry edges)" % tag,
+            kernels.point_double(E, g2), curve.point_double_plain(E, g2)))
+        del E, F
         for n_win, c_test in ((2, 5), (4, 3)):
             W = P.reshape((n_win, n // n_win) + P.shape[1:]).contiguous()
             errs[k_hor].append(same(
@@ -671,18 +789,22 @@ def fold_check_schedules(c, g2):
 
 
 def scan_check_inputs(base, rng, g2):
-    """CHECK_POINTS sorted keys with the point index of each, over points
-    with identities and negations: negative keys first (never merging),
-    short random runs, runs of P then -P, a run of one point repeated
-    (P + P), and one run of 8192 elements across many tiles."""
+    """Sorted keys with the point index of each, over points with
+    identities and negations: negative keys first (never merging), short
+    random runs, runs of P then -P, a run of one point repeated (P + P),
+    and one run over 16 tiles of K6's default schedule, starting and ending
+    inside a tile; CHECK_POINTS elements besides that run, the last tile
+    ragged."""
     P, Q = test_points(base, CHECK_POINTS, rng, g2)
     X = torch.cat([P, Q]).contiguous()              # Q[128:192] = -P[128:192]
     n = CHECK_POINTS
-    lengths = [1] * 6 + [2] * 64 + [64, 8192]
+    log_t, items = fold.scan_schedule(g2)
+    long_run = (16 << log_t) * items + (items << log_t) // 2
+    lengths = [1] * 6 + [2] * 64 + [64, long_run]
     lengths += list(rng.integers(1, 20, n))
-    keys = np.repeat(np.arange(len(lengths)), lengths)[:n] - 6
+    keys = np.repeat(np.arange(len(lengths)), lengths)[:n + long_run] - 6
     keys[:6] = [-2, -2, -1, -1, -1, -1]
-    idx = rng.integers(0, 2 * n, n)
+    idx = rng.integers(0, 2 * n, n + long_run)
     idx[6:134:2] = 128 + np.arange(64)              # P ...
     idx[7:135:2] = n + 128 + np.arange(64)          # ... then -P
     idx[134:198] = 777
@@ -715,26 +837,33 @@ def phase_fused_kernels(rng):
                 fold.bucket_fold_plain(B, 16, cf, g2, sched)))
         X, keys, idx = scan_check_inputs(base, rng, g2)
         sched = fold.scan_schedule(g2)
-        errs6 = [same("K6 %s (one launch)" % k6.name,
-                      kernels.seg_scan_tiles(X, keys, idx, g2),
-                      fold.seg_scan_tile_plain(X, keys, idx, g2, sched))]
-        got = msm_scan.seg_scan(X, keys, idx, g2)
-        errs6.append(same("K6 %s (all levels, K1 carries)" % k6.name, got,
-                          msm_scan.seg_scan(X, keys, idx, g2,
-                                            tiles=plain_scan,
-                                            add=curve.point_add_plain)))
-        # the long run's last element against a host sum
+        # every prefix of the long run against host sums
         to_host = curve.tensor_to_g2 if g2 else curve.tensor_to_g1
         run = (keys == keys[198 + 64]).nonzero().squeeze(1)
-        host = to_host(X[idx[run]])
-        want = None
-        for pt in host:
-            want = bn254.add(want, pt)
-        if to_host(got[run[-1:]])[0] != want:
-            fail("K6 %s: the %d-element run differs from its host sum"
-                 % (k6.name, run.numel()))
-        log("  %-34s a %d-element run over %d tiles equals its host sum"
-            % (k6.name, run.numel(), run.numel() // (sched[1] << sched[0])))
+        prefix, acc = [], None
+        for pt in to_host(X[idx[run]]):
+            acc = bn254.add(acc, pt)
+            prefix.append(acc)
+        errs6 = []
+        # the default tiles, and small ones for three levels of tiles
+        for sc in (sched, (5, 4)):
+            errs6.append(same("K6 %s (one launch, schedule %s)" % (
+                k6.name, sc), kernels.seg_scan_tiles(X, keys, idx, g2, sc),
+                fold.seg_scan_tile_plain(X, keys, idx, g2, sc)))
+            got = msm_scan.seg_scan(X, keys, idx, g2, sc)
+            errs6.append(same(
+                "K6 %s (all levels, K1 carries, schedule %s)" % (k6.name, sc),
+                got, msm_scan.seg_scan(X, keys, idx, g2, sc,
+                                       tiles=plain_scan,
+                                       add=curve.point_add_plain)))
+            if to_host(got[run]) != prefix:
+                fail("K6 %s: the prefixes of the %d-element run differ from "
+                     "their host sums (schedule %s)" % (k6.name, run.numel(),
+                                                        sc))
+            log("  %-34s every prefix of a %d-element run over %d tiles "
+                "equals its host sum (schedule %s)" % (
+                    k6.name, run.numel(), run.numel() // (sc[1] << sc[0]),
+                    sc))
 
         # the generic window step doubles one accumulator (K2, one lane)
         k2 = kernels.POINT_DOUBLE[g2]
@@ -777,6 +906,7 @@ def phase_fused_kernels(rng):
         keys, src = msm.sorted_keys(msm.window_digits(words, c))
         ms, got = cuda_ms(lambda: kernels.seg_scan_tiles(points, keys, src,
                                                          g2))
+        all_ms = cuda_ms(lambda: msm_scan.seg_scan(points, keys, src, g2))[0]
         m = 1 << SCAN_PLAIN_LOG
         ks, ss = keys[:m].contiguous(), src[:m].contiguous()
         plain_ms, want = cuda_ms(lambda: fold.seg_scan_tile_plain(
@@ -789,12 +919,13 @@ def phase_fused_kernels(rng):
         b6 = bound_ms(n6 * (16 + 2 * pb), merges * OP_IMAD[("add", g2)])
         shape6 = "%d keys of 2^%d scalars, c=%d" % (n6, FULL_LOG, c)
         rec[k6.name] = dict(max_abs_err=max(errs6), ms=ms, plain_ms=plain_ms,
+                            all_levels_ms=all_ms,
                             bound_ms=b6[0], bound_by=b6[1], shape=shape6,
                             plain_shape="first 2^%d keys" % SCAN_PLAIN_LOG)
-        log("  %-16s %-30s kernel %10.4f ms  plain %10.2f ms (2^%d keys)  "
-            "bound %8.4f ms (%s, %d adds)" % (
-                k6.name, shape6, ms, plain_ms, SCAN_PLAIN_LOG, b6[0], b6[1],
-                merges))
+        log("  %-16s %-30s kernel %10.4f ms (all levels %.4f ms)  plain "
+            "%10.2f ms (2^%d keys)  bound %8.4f ms (%s, %d adds)" % (
+                k6.name, shape6, ms, all_ms, plain_ms, SCAN_PLAIN_LOG, b6[0],
+                b6[1], merges))
         del points, words, keys, src, got, want, ks, ss
         torch.cuda.empty_cache()
 
@@ -1053,6 +1184,15 @@ def main():
         if "Used" in line or "stack frame" in line or \
                 "Compiling entry" in line or "Function properties" in line:
             log("    " + line.strip())
+    report = compiler_report(_build.build_log())
+    symbols = {k.name: kernel_symbol(k, report) for k in kernels.ALL}
+    mix = sass_mix(_build._stem("msm_kernels") + ".so",
+                   set(symbols.values())) or {}
+    resources = {}
+    for k in kernels.ALL:
+        resources[k.name] = dict(report.get(symbols[k.name]) or {})
+        resources[k.name]["sass"] = mix.get(symbols[k.name])
+        log("  %-20s %s" % (k.name, json.dumps(resources[k.name])))
 
     rng = np.random.default_rng(SEED)
     ctx = fixture_context()
@@ -1113,8 +1253,10 @@ def main():
                     "bound_by": r["bound_by"], "library_ms": None,
                     "shape": r["shape"]})
         out[-1].update({key: r[key] for key in ("one_lane_ms", "pairfold_ms",
-                                                "plain_shape", "rates")
+                                                "plain_shape", "rates",
+                                                "all_levels_ms")
                         if key in r})
+        out[-1].update(resources[k.name])
         if not out[-1]["launches"]:
             fail("kernel %s was launched on no main path" % k.name)
     log("total %.1f s" % (time.perf_counter() - t_start))

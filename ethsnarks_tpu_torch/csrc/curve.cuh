@@ -5,7 +5,10 @@
 // (:356-503) and the plain twins in ethsnarks_tpu_torch/ops/curve.py.
 // G1 coordinates are Fq with 3b = 9; G2 coordinates are Fq2 = Fq[u]/(u^2+1)
 // with 3 * b_twist.  Complete: identity (0, 1, 0), P + P and P + (-P) need
-// no branches.
+// no branches.  Every field operation is inlined (each Fq operation is one
+// PTX block, field.cuh), so the G2 formulas keep their values in
+// registers; coordinates between the steps are lazily reduced (< 2q) and
+// store_point writes them canonical.
 
 #pragma once
 #include "field.cuh"
@@ -15,13 +18,6 @@ namespace esn {
 struct alignas(16) fq2 {
     fq c0, c1;
 };
-
-// 3 * b_twist = 9 / (9 + u), Montgomery words of (c0, c1).
-__constant__ uint32_t G2_B3[2][8] = {
-    {0xb62e0d6au, 0x3baa927cu, 0xd1b664fdu, 0xd71e7c52u,
-     0xd95d4664u, 0x03873e63u, 0x082ab8f4u, 0x0e75b5b1u},
-    {0x7596fe35u, 0xaab7c666u, 0xbb6a27bau, 0x31d21a78u,
-     0x680401ffu, 0x85dd7297u, 0xdf39a7e9u, 0x03c52d6au}};
 
 __device__ __forceinline__ fq f_add(const fq& a, const fq& b) { return fq_add(a, b); }
 __device__ __forceinline__ fq f_sub(const fq& a, const fq& b) { return fq_sub(a, b); }
@@ -38,24 +34,19 @@ __device__ __forceinline__ fq2 f_add(const fq2& a, const fq2& b) {
 __device__ __forceinline__ fq2 f_sub(const fq2& a, const fq2& b) {
     return {fq_sub(a.c0, b.c0), fq_sub(a.c1, b.c1)};
 }
-// Not inlined: the G2 formulas fully inlined (14 Fq2 products per add, each
-// three Fq products of 136 multiplies) crash the compiler's front end (cicc
-// segfaults in CUDA 12.9); one out-of-line Fq2 product keeps the G2
-// kernels compilable at the cost of a call and a stack frame per product.
-__device__ __noinline__ fq2 f_mul(const fq2& a, const fq2& b) {
+__device__ __forceinline__ fq2 f_mul(const fq2& a, const fq2& b) {
     // Karatsuba: three Fq products
     fq m0 = fq_mul(a.c0, b.c0);
     fq m1 = fq_mul(a.c1, b.c1);
     fq m2 = fq_mul(fq_add(a.c0, a.c1), fq_add(b.c0, b.c1));
     return {fq_sub(m0, m1), fq_sub(fq_sub(m2, m0), m1)};
 }
+// 3 * b_twist = 9 / (9 + u), Montgomery words of (c0, c1).
 __device__ __forceinline__ fq2 f_mul_b3(const fq2& a) {
-    fq2 b3;
-#pragma unroll
-    for (int i = 0; i < 8; i++) {
-        b3.c0.w[i] = G2_B3[0][i];
-        b3.c1.w[i] = G2_B3[1][i];
-    }
+    const fq2 b3 = {{{0xb62e0d6au, 0x3baa927cu, 0xd1b664fdu, 0xd71e7c52u,
+                      0xd95d4664u, 0x03873e63u, 0x082ab8f4u, 0x0e75b5b1u}},
+                    {{0x7596fe35u, 0xaab7c666u, 0xbb6a27bau, 0x31d21a78u,
+                      0x680401ffu, 0x85dd7297u, 0xdf39a7e9u, 0x03c52d6au}}};
     return f_mul(a, b3);
 }
 
@@ -145,11 +136,19 @@ __device__ __forceinline__ P load_point(const uint32_t* base, long long i) {
     return p;
 }
 
-template <class P>
-__device__ __forceinline__ void store_point(uint32_t* base, long long i, const P& p) {
-    constexpr int V = sizeof(P) / 16;
+__device__ __forceinline__ fq canon(const fq& a) { return fq_canon(a); }
+__device__ __forceinline__ fq2 canon(const fq2& a) {
+    return {fq_canon(a.c0), fq_canon(a.c1)};
+}
+
+// Writes the point with canonical coordinates (each < q).
+template <class F>
+__device__ __forceinline__ void store_point(uint32_t* base, long long i,
+                                            const point<F>& p) {
+    constexpr int V = sizeof(point<F>) / 16;
+    const point<F> c = {canon(p.x), canon(p.y), canon(p.z)};
     uint4* dst = reinterpret_cast<uint4*>(base) + i * V;
-    const uint4* src = reinterpret_cast<const uint4*>(&p);
+    const uint4* src = reinterpret_cast<const uint4*>(&c);
 #pragma unroll
     for (int k = 0; k < V; k++) dst[k] = src[k];
 }

@@ -25,26 +25,48 @@
 // K6: out[j] = sum of P[idx[j]] over i <= j in j's run of equal keys.
 // Keys are sorted (non-decreasing); a negative key never merges (the -1
 // and -2 of the reference's tile padding and first carry).  One block
-// scans a tile of blockDim * v elements: each thread walks v elements
-// (serial segmented sum), a Hillis-Steele segmented scan over the
-// threads' trailing-run sums in shared memory gives each thread the carry
-// of the threads before it, which the thread adds into its leading run.
-// Runs that cross tiles are finished by the caller: it scans the tiles'
-// last elements (the tile aggregates, as in the reference) with this
-// kernel again and adds each tile's carry with K1.  No tile padding: the
-// last tile is ragged and masked here.
+// scans a tile of blockDim * v elements, thread t the v elements from
+// t v (v = 64 by default, ops/fold.py); the last tile is ragged and masked
+// here, not padded.  Runs that cross tiles are finished by the caller: it
+// scans the tiles' last elements (the tile aggregates, as in the
+// reference) with this kernel again and adds each tile's carry into its
+// leading run with K1.
 //
 // What bounds them on this card: integer multiplies, as K1 (3168 IMADs per
 // G1 add, 11088 per G2 add): K5 does about 2 adds per bucket plus
-// log-depth combines, K6 about 1 add per element, against 96 or 192 bytes
-// read per bucket or element.  Both keep every partial sum in registers or
-// shared memory; the buckets and points are read once with 16-byte loads.
-// The G2 point add is called out of line (p_add below), so each G2 kernel
-// holds one copy of the formulas: fully inlined Fq2 formulas crash the
-// compiler's front end (see curve.cuh).  The G1 add is inlined in the
-// walks over buckets and elements, and called out of line in the
-// log-depth combines.
+// log-depth combines, K6 needs one add per element that merges, against
+// 96 or 192 bytes read per bucket or element.  Both keep every partial
+// sum in registers or shared memory; the buckets and points are read once
+// with 16-byte loads.
 //
+// K6's design keeps its adds near that one per element.  A thread first
+// sums only its trailing run (from its last element back while the key
+// holds: about 8.5 elements at the 2^20 MSM's runs of 16 keys, 0.13 adds
+// an element at v = 64).  The threads' (key, sum) pairs are scanned by
+// warp shuffles within each warp (log2(32) steps, no barrier) and by
+// thread 0 over the warps; a step adds only where a run covers a whole
+// thread, which runs shorter than v almost never do.  Then each thread
+// walks its elements once, forwards, starting from the inclusive sum of
+// the thread before it where its first key continues that thread's run,
+// and writes every prefix: the carry is the walk's seed, so no prefix is
+// written twice.  One add site serves both walks.  A Hillis-Steele scan
+// over all the threads' sums in shared memory (log2(threads) levels of
+// adds, two barriers each) with a second pass adding the carry into each
+// thread's leading run costs about two more adds an element at v = 8.
+// On an H100, 64 elements a thread ran faster than 32 and 16 (fewer
+// trailing-run adds; python -m ethsnarks_tpu_torch.ab_kernels, PERF.md).
+//
+// Occupancy (ScanCfg, FusedCfg): the most blocks an SM that ptxas fits
+// without spilling.  G1: 128 threads, at least 3 blocks an SM: 166
+// registers (of 168), 0 bytes of stack and spills (at 4 blocks, 128
+// registers and 80 bytes of spills).  G2: 64 threads at 255 registers: the walk's two
+// points and state do not fit, and ptxas spills about 200 bytes (an
+// 88-byte frame).
+//
+// The point add is inlined everywhere but in K5's log-depth combines,
+// which call one out-of-line copy (p_add_cold, p_dbl_cold) to keep the
+// kernels small.
+
 // Every launcher returns cudaGetLastError() after the launch; the Python
 // wrapper raises on a non-zero value.  This file is not compiled on its
 // own: msm_kernels.cu includes it, so every kernel is one library.
@@ -62,17 +84,11 @@ template <class F> struct FusedCfg;
 template <> struct FusedCfg<fq> { static constexpr int kThreads = 128; };
 template <> struct FusedCfg<fq2> { static constexpr int kThreads = 64; };
 
-__device__ __forceinline__ point<fq> p_add(const point<fq>& a, const point<fq>& b) {
-    return rcb_add(a, b);
-}
-__device__ __noinline__ point<fq2> p_add(const point<fq2>& a, const point<fq2>& b) {
-    return rcb_add(a, b);
-}
 // The log-depth combines run a few adds a thread: one out-of-line copy
-// keeps the G1 kernels small.
+// keeps the kernels small.
 template <class F>
 __device__ __noinline__ point<F> p_add_cold(const point<F>& a, const point<F>& b) {
-    return p_add(a, b);
+    return rcb_add(a, b);
 }
 template <class F>
 __device__ __noinline__ point<F> p_dbl_cold(const point<F>& a) {
@@ -158,8 +174,8 @@ k_bucket_fold(const uint32_t* __restrict__ buckets, uint32_t* __restrict__ out,
         acc = run;
 #pragma unroll 1
     for (int i = m - 2; i >= 0; i--) {
-        run = p_add(run, load_point<point<F>>(buckets, base + i));
-        if (i > 0) acc = p_add(acc, run);
+        run = rcb_add(run, load_point<point<F>>(buckets, base + i));
+        if (i > 0) acc = rcb_add(acc, run);
     }
     R[t] = run;
     W[t] = acc;
@@ -191,49 +207,112 @@ k_bucket_fold(const uint32_t* __restrict__ buckets, uint32_t* __restrict__ out,
     }
 }
 
-// One tile of blockDim.x * v elements per block (the last one ragged).
-// idx == nullptr means element j reads P[j].
+// K6's occupancy: the most blocks of FusedCfg<F>::kThreads an SM that
+// ptxas fits without spilling (see the note at the top).
+template <class F> struct ScanCfg;
+template <> struct ScanCfg<fq> { static constexpr int kMinBlocks = 3; };
+template <> struct ScanCfg<fq2> { static constexpr int kMinBlocks = 2; };
+
+__device__ __forceinline__ fq shfl_up(const fq& a, int d, unsigned mask) {
+    fq r;
+#pragma unroll
+    for (int k = 0; k < 8; k++) r.w[k] = __shfl_up_sync(mask, a.w[k], d);
+    return r;
+}
+__device__ __forceinline__ fq2 shfl_up(const fq2& a, int d, unsigned mask) {
+    return {shfl_up(a.c0, d, mask), shfl_up(a.c1, d, mask)};
+}
 template <class F>
-__global__ void __launch_bounds__(FusedCfg<F>::kThreads)
+__device__ __forceinline__ point<F> shfl_up(const point<F>& p, int d,
+                                            unsigned mask) {
+    return {shfl_up(p.x, d, mask), shfl_up(p.y, d, mask),
+            shfl_up(p.z, d, mask)};
+}
+
+// One tile of blockDim.x * v elements per block (the last one ragged);
+// thread t walks elements [t v, (t + 1) v) of its tile.  idx == nullptr
+// means element j reads P[j].
+template <class F>
+__global__ void __launch_bounds__(FusedCfg<F>::kThreads, ScanCfg<F>::kMinBlocks)
 k_seg_scan(const uint32_t* __restrict__ P, const int64_t* __restrict__ idx,
-           const int64_t* __restrict__ keys, uint32_t* __restrict__ out, int n, int v) {
-    constexpr int kT = FusedCfg<F>::kThreads;
-    __shared__ point<F> S[kT];
-    __shared__ long long K[kT];
+           const int64_t* __restrict__ keys, uint32_t* __restrict__ out,
+           int n, int v) {
+    constexpr int kWarps = (FusedCfg<F>::kThreads + 31) / 32;
+    __shared__ point<F> Y[kWarps];   // inclusive sum at each warp's last lane
+    __shared__ long long KY[kWarps];  // and its key
     const int t = threadIdx.x, T = blockDim.x;
+    const int lane = t & 31, warp = t >> 5;
+    const int width = T < 32 ? T : 32;
+    const unsigned mask = width == 32 ? 0xffffffffu : (1u << width) - 1u;
     const long long start = ((long long)blockIdx.x * T + t) * v;
     const long long end = min(start + v, (long long)n);
+
+    // Pass 1 walks the thread's trailing run backwards from its last
+    // element (k: its key, -1 for a thread without elements, which never
+    // merges); pass 2 walks all its elements forwards, the first one merged
+    // into the carry of the threads before it when the key continues, and
+    // writes every prefix.  One add site serves both passes.
+    long long k = -1;
     point<F> acc;
     set_identity(acc);
-    long long kprev = -1;  // stays -1 (never merges) for a thread without elements
 #pragma unroll 1
-    for (long long j = start; j < end; j++) {
-        const long long k = keys[j];
-        const point<F> p = load_point<point<F>>(P, idx ? idx[j] : j);
-        acc = (j > start && k == kprev && k >= 0) ? p_add(acc, p) : p;
-        store_point(out, j, acc);
-        kprev = k;
-    }
-    S[t] = acc;
-    K[t] = kprev;
-    // inclusive segmented scan of the threads' trailing-run sums
+    for (int pass = 1; pass <= 2; pass++) {
+        long long kl;  // key of the previous element; -1 never merges
+        if (pass == 1) {
+            if (start < end) k = keys[end - 1];
+            kl = -1;
+        } else {
+            // segmented inclusive scan of the trailing-run sums (k, acc):
+            // over the lanes of each warp by shuffles, then over the warps
+            // by thread 0, then each lane takes its warps' carry
 #pragma unroll 1
-    for (int d = 1; d < T; d <<= 1) {
-        __syncthreads();
-        const bool merge = t >= d && K[t - d] == K[t] && K[t] >= 0;
-        point<F> q;
-        if (merge) q = S[t - d];
-        __syncthreads();
-        if (merge) S[t] = p_add_cold(q, S[t]);
-    }
-    __syncthreads();
-    // the carry of threads 0..t-1 into this thread's leading run
-    if (t > 0 && start < end && K[t - 1] >= 0) {
-        const long long ck = K[t - 1];
-        const point<F> cv = S[t - 1];
+            for (int d = 1; d < width; d <<= 1) {
+                const long long kd = __shfl_up_sync(mask, k, d);
+                const point<F> ad = shfl_up(acc, d, mask);
+                if (lane >= d && kd == k && k >= 0) acc = rcb_add(ad, acc);
+            }
+            const int n_warps = (T + 31) >> 5;
+            if (n_warps > 1) {
+                if (lane == 31) {
+                    Y[warp] = acc;
+                    KY[warp] = k;
+                }
+                __syncthreads();
+                if (t == 0) {
 #pragma unroll 1
-        for (long long j = start; j < end && keys[j] == ck; j++)
-            store_point(out, j, p_add(cv, load_point_cg<point<F>>(out, j)));
+                    for (int w = 1; w < n_warps; w++)
+                        if (KY[w] == KY[w - 1] && KY[w] >= 0)
+                            Y[w] = rcb_add(Y[w - 1], Y[w]);
+                }
+                __syncthreads();
+                if (warp > 0 && k == KY[warp - 1] && k >= 0)
+                    acc = rcb_add(Y[warp - 1], acc);
+            }
+            // the carry into this thread: the inclusive sum of thread t - 1
+            kl = __shfl_up_sync(mask, k, 1);
+            const point<F> cin = shfl_up(acc, 1, mask);
+            if (lane > 0) {
+                acc = cin;
+            } else if (warp > 0) {
+                kl = KY[warp - 1];
+                acc = Y[warp - 1];
+            } else {
+                kl = -1;
+            }
+        }
+        long long len = end - start;
+        if (pass == 1 && k < 0) len = min(len, 1LL);
+#pragma unroll 1
+        for (long long i = 0; i < len; i++) {
+            const long long j = pass == 1 ? end - 1 - i : start + i;
+            const long long kj = keys[j];
+            if (pass == 1 && kj != k) break;
+            const point<F> p = load_point<point<F>>(P, idx ? idx[j] : j);
+            const bool merge = pass == 1 ? i > 0 : (kj == kl && kj >= 0);
+            acc = merge ? rcb_add(acc, p) : p;
+            if (pass == 2) store_point(out, j, acc);
+            kl = kj;
+        }
     }
 }
 

@@ -25,6 +25,18 @@
 // materialise gathered copies.  No tensor cores: the work is 32-bit
 // integer carries, not a matrix product.
 //
+// K1 carries the MSM's bucket sums and pairfold, the dense MSM's
+// halving tree and the scan carries, so its cost is the field product's
+// (field.cuh: carry-chained PTX, one IMAD.WIDE per wide product, lazy
+// reduction) and how many warps hide the latency of the product's carry
+// chains.  Its occupancy (AddCfg) is the most blocks of 128 threads an SM
+// that ptxas fits without spilling: G1 4 blocks, 128 registers, 0 bytes
+// of stack and spills (5 blocks: 96 registers, 28 bytes of spills); G2 2
+// blocks, 255 registers, 0 bytes of stack and spills (3 blocks: 168
+// registers, 316 bytes of spills, and slower on an H100).  A G2 add holds
+// both operands (96 registers) and up to six Fq2 intermediates besides
+// the product's own state, so 2 blocks is as far as G2 goes.
+//
 // Every launcher returns cudaGetLastError() after the launch; the Python
 // wrapper raises on a non-zero value.  The setup's K4 (setup_kernels.cu)
 // and the fused and scan MSMs' K5 and K6 (msm_fused_kernels.cu) are
@@ -40,10 +52,20 @@ namespace esn {
 
 constexpr int kThreads = 128;
 
+// K1's occupancy: threads a block, and the most blocks an SM that ptxas
+// fits without spilling (see the note at the top).
+template <class F> struct AddCfg;
+template <> struct AddCfg<fq> {
+    static constexpr int kThreads = 128, kMinBlocks = 4;
+};
+template <> struct AddCfg<fq2> {
+    static constexpr int kThreads = 128, kMinBlocks = 2;
+};
+
 // out[i] = P[ia[i]] + Q[ib[i]]; ia == nullptr means i, ib == nullptr means
 // i; ib[i] < 0 passes P[ia[i]] through unchanged.
 template <class F>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(AddCfg<F>::kThreads, AddCfg<F>::kMinBlocks)
 k_point_add(const uint32_t* __restrict__ P, const uint32_t* __restrict__ Q,
             const int64_t* __restrict__ ia, const int64_t* __restrict__ ib,
             uint32_t* __restrict__ out, int n) {
@@ -80,7 +102,9 @@ k_horner(const uint32_t* __restrict__ W, uint32_t* __restrict__ out,
     store_point(out, j, acc);
 }
 
-inline int blocks(int n) { return (n + kThreads - 1) / kThreads; }
+inline int blocks(int n, int threads = kThreads) {
+    return (n + threads - 1) / threads;
+}
 
 }  // namespace esn
 
@@ -92,7 +116,8 @@ using esn::fq2;
                                           const void* ia, const void* ib,       \
                                           void* out, int n, void* stream) {     \
         if (n > 0)                                                              \
-            esn::k_point_add<F><<<esn::blocks(n), esn::kThreads, 0,             \
+            esn::k_point_add<F><<<esn::blocks(n, esn::AddCfg<F>::kThreads),    \
+                                  esn::AddCfg<F>::kThreads, 0,                  \
                                   (cudaStream_t)stream>>>(                      \
                 (const uint32_t*)P, (const uint32_t*)Q, (const int64_t*)ia,     \
                 (const int64_t*)ib, (uint32_t*)out, n);                         \

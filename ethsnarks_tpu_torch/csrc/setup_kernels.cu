@@ -23,9 +23,7 @@
 // a tree of five add launches; here the gather and the reduction are one
 // launch and no intermediate point reaches device memory.  The table
 // (8,192 points: 786 KB on G1, 1.5 MB on G2) stays resident in the 50 MB
-// L2.  The window loop is not unrolled: one inlined add per kernel keeps
-// the G2 instantiation within what the compiler's front end takes (see
-// curve.cuh).
+// L2.  The window loop is not unrolled: one inlined add per kernel.
 //
 // Every launcher returns cudaGetLastError() after the launch; the Python
 // wrapper raises on a non-zero value.  This file is not compiled on its

@@ -19,7 +19,7 @@ from . import curve
 # threads per block of the kernels (FusedCfg in msm_fused_kernels.cu)
 MAX_LOG_THREADS = {False: 7, True: 6}
 FOLD_LOG_CHUNK = 4          # buckets a thread walks, log2, by default
-SCAN_ITEMS = 8              # elements a thread walks
+SCAN_ITEMS = 64             # elements a thread walks
 
 
 def _add(p, q, g2):
@@ -140,7 +140,15 @@ def scan_schedule(g2, log_t=None, items=None):
 def seg_scan_tile_plain(P, keys, idx=None, g2=False, schedule=None):
     """One K6 launch: per tile of 2^log_t * items elements, out[j] = sum of
     P[idx[j]] over the elements i <= j of the tile in j's run of equal
-    keys; a negative key never merges."""
+    keys; a negative key never merges.
+
+    The kernel's schedule: each thread (a lane here) sums its trailing run
+    from its last element backwards; the lanes' (key, sum) pairs are
+    scanned by a segmented Hillis-Steele scan within each warp of
+    min(2^log_t, 32) lanes, then serially over the warps of the tile, each
+    warp's lanes taking the sum of the warps before them; each lane then
+    walks its elements forwards from the inclusive sum of the lane before
+    it, merged into its first element where the key continues."""
     log_t, v = schedule or scan_schedule(g2)
     shape = curve.point_shape(g2)
     dev = keys.device
@@ -148,40 +156,59 @@ def seg_scan_tile_plain(P, keys, idx=None, g2=False, schedule=None):
     T = 1 << log_t
     tile = T * v
     n_tiles = -(-n // tile)
-    total = n_tiles * tile
+    lanes = n_tiles * T
+    pad = lanes * v - n
     pts = P if idx is None else P[idx]
-    pad = total - n
     K = torch.cat([keys, torch.full((pad,), -1, dtype=keys.dtype,
-                                    device=dev)]).reshape(-1, v)
+                                    device=dev)]).reshape(lanes, v)
     X = torch.cat([pts, curve.identity(pad, g2, dev)]).reshape(
-        (-1, v) + shape)
-    valid = (torch.arange(total, device=dev) < n).reshape(-1, v)
-    # each thread's serial walk
-    acc, kprev = X[:, 0], torch.where(valid[:, 0], K[:, 0], -1)
-    acc = _where(valid[:, 0], acc, curve.identity(acc.shape[0], g2, dev))
-    outs = [X[:, 0]]
-    for i in range(1, v):
-        k, p = K[:, i], X[:, i]
-        new = _add_where((k == kprev) & (k >= 0), acc, p, p, g2)
-        outs.append(new)
-        acc = _where(valid[:, i], new, acc)
-        kprev = torch.where(valid[:, i], k, kprev)
-    out = torch.stack(outs, 1)                          # (lanes, v, *pt)
-    # Hillis-Steele segmented scan over the threads of each tile
-    S = acc.reshape((n_tiles, T) + shape)
-    Kt = kprev.reshape(n_tiles, T)
+        (lanes, v) + shape)
+    cnt = (n - torch.arange(lanes, device=dev) * v).clamp(0, v)
+    last = (cnt - 1).clamp(min=0)
+    rows = torch.arange(lanes, device=dev)
+    k = torch.where(cnt > 0, K[rows, last], -1)
+    # pass 1: the trailing runs, from the back
+    acc = _where(cnt > 0, X[rows, last], curve.identity(lanes, g2, dev))
+    run = k >= 0
+    for i in range(v - 2, -1, -1):
+        inside = i < last
+        run = run & (~inside | (K[:, i] == k))
+        acc = _add_where(run & inside, acc, X[:, i], acc, g2)
+    # the warps' segmented scans
+    W = min(T, 32)
+    S = acc.reshape((lanes // W, W) + shape)
+    Kw = k.reshape(-1, W)
     d = 1
-    while d < T:
-        merge = (Kt[:, :-d] == Kt[:, d:]) & (Kt[:, d:] >= 0)
+    while d < W:
+        merge = (Kw[:, d:] == Kw[:, :-d]) & (Kw[:, d:] >= 0)
         S = torch.cat([S[:, :d], _add_where(merge, S[:, :-d], S[:, d:],
                                             S[:, d:], g2)], 1)
         d <<= 1
-    # carries of threads t - 1 into the leading runs of threads t >= 1
-    ck = torch.cat([torch.full((n_tiles, 1), -1, dtype=Kt.dtype,
+    # the warps of each tile, serially; then each warp's lanes take the
+    # inclusive sum of the warp before them where their key continues
+    nw = T // W
+    S = S.reshape((n_tiles, nw, W) + shape)
+    Kw = Kw.reshape(n_tiles, nw, W)
+    Y, KY = S[:, :, W - 1].clone(), Kw[:, :, W - 1]
+    for w in range(1, nw):
+        m = (KY[:, w] == KY[:, w - 1]) & (KY[:, w] >= 0)
+        Y[:, w] = _add_where(m, Y[:, w - 1], Y[:, w], Y[:, w], g2)
+    if nw > 1:
+        m = (Kw[:, 1:] == KY[:, :-1, None]) & (Kw[:, 1:] >= 0)
+        S = torch.cat([S[:, :1], _add_where(
+            m, Y[:, :-1, None].expand_as(S[:, 1:]), S[:, 1:], S[:, 1:],
+            g2)], 1)
+    # pass 2: each lane from the inclusive sum of the lane before it
+    S = S.reshape((n_tiles, T) + shape)
+    Kt = k.reshape(n_tiles, T)
+    acc = torch.cat([S[:, :1], S[:, :-1]], 1).reshape((lanes,) + shape)
+    kl = torch.cat([torch.full((n_tiles, 1), -1, dtype=Kt.dtype,
                                device=dev), Kt[:, :-1]], 1).reshape(-1)
-    cv = torch.cat([S[:, :1], S[:, :-1]], 1).reshape((-1,) + shape)
-    lead = (ck >= 0) & valid[:, 0]
+    outs = []
     for i in range(v):
-        lead = lead & valid[:, i] & (K[:, i] == ck)
-        out[:, i] = _add_where(lead, cv, out[:, i], out[:, i], g2)
-    return out.reshape((total,) + shape)[:n].contiguous()
+        kj = K[:, i]
+        acc = _add_where((kj == kl) & (kj >= 0), acc, X[:, i], X[:, i], g2)
+        outs.append(acc)
+        kl = kj
+    out = torch.stack(outs, 1).reshape((lanes * v,) + shape)
+    return out[:n].contiguous()

@@ -76,12 +76,19 @@ def seg_scan(P, keys, idx=None, g2=False, schedule=None,
     agg_keys = keys[last].contiguous()
     agg = seg_scan(out[last].contiguous(), agg_keys, None, g2,
                    (log_t, items), tiles, add)
-    tile_of = torch.arange(n, device=dev) // tile
-    prev = torch.clamp(tile_of - 1, min=0)
-    carried = torch.nonzero((tile_of > 0) & (keys >= 0)
-                            & (keys == agg_keys[prev])).squeeze(1)
-    if carried.numel():
-        out[carried] = add(agg, out, prev[carried], carried, g2)
+    # tile b >= 1 takes agg[b - 1] into its leading elements of key
+    # agg_keys[b - 1]: a prefix of the tile, as the keys are sorted
+    ck = agg_keys[:-1]
+    first = torch.arange(1, last.shape[0], device=dev) * tile
+    stop = torch.minimum(torch.searchsorted(keys, ck, right=True),
+                         first + tile)
+    cnt = torch.where(ck >= 0, (stop - first).clamp(min=0), 0)
+    prev = torch.repeat_interleave(torch.arange(ck.shape[0], device=dev),
+                                   cnt)
+    if prev.numel():
+        carried = torch.arange(prev.shape[0], device=dev) + \
+            (first - (torch.cumsum(cnt, 0) - cnt))[prev]
+        out[carried] = add(agg, out, prev, carried, g2)
     return out
 
 

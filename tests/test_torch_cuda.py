@@ -25,6 +25,8 @@ from ethsnarks_tpu_torch.ops.fp import ints_to_words_np
 from ethsnarks_tpu_torch.serialization import read_pk_binary, \
     r1cs_from_dict, witness_from_json, write_pk_binary
 
+from torch_port_helpers import carry_edge_values
+
 pytestmark = pytest.mark.cuda
 
 FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
@@ -63,6 +65,37 @@ def test_kernels_match_twins(card, g2):
              curve.point_add_plain(P, Q, ia, ib, g2)),
             (kernels.point_double(P, g2), curve.point_double_plain(P, g2)),
             (kernels.horner(W, 4, g2), curve.horner_plain(W, 4, g2))):
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+def _carry_edge_points(n, g2, device, seed):
+    """n raw coordinate triples, not on the curve, every coordinate (each
+    Fq part on G2) one of :func:`carry_edge_values` as Montgomery words."""
+    rng = np.random.default_rng(seed)
+    vals = carry_edge_values(bn254.FIELD_MODULUS, rng)
+    pick = rng.integers(0, len(vals), n * (6 if g2 else 3))
+    words = ints_to_words_np([vals[i] for i in pick])
+    return torch.from_numpy(words).reshape(
+        (n,) + curve.point_shape(g2)).to(device)
+
+
+@pytest.mark.parametrize('g2', [False, True], ids=['g1', 'g2'])
+def test_point_kernels_carry_edges(card, g2):
+    """K1 (with and without indices) and K2 on coordinates that reach the
+    field core's rare carries: the RCB15 formulas are polynomials, so
+    kernel and plain version agree bit for bit off the curve too."""
+    n = 4096
+    P, Q = _carry_edge_points(n, g2, card, 11), \
+        _carry_edge_points(n, g2, card, 12)
+    rng = np.random.default_rng(13)
+    ia = torch.from_numpy(rng.integers(0, n, n)).to(card)
+    ib = torch.from_numpy(rng.integers(-1, n, n)).to(card)
+    for got, want in (
+            (kernels.point_add(P, Q, g2=g2), curve.point_add_plain(P, Q, g2=g2)),
+            (kernels.point_add(P, Q, ia, ib, g2),
+             curve.point_add_plain(P, Q, ia, ib, g2)),
+            (kernels.point_double(P, g2), curve.point_double_plain(P, g2))):
         torch.cuda.synchronize()
         assert torch.equal(got, want)
 

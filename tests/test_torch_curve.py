@@ -20,7 +20,8 @@ from ethsnarks_tpu_torch.ops.fp import MONT_R, ints_to_words_np, \
     words_to_ints
 from ethsnarks_tpu_torch.serialization import read_pk_binary
 
-from torch_port_helpers import torch_threads  # noqa: F401
+from torch_port_helpers import carry_edge_values, \
+    torch_threads  # noqa: F401
 
 Q = ref.FIELD_MODULUS
 FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
@@ -123,6 +124,38 @@ def test_double_matches_red_core(g2):
     else:
         want = fp_red.g1_double_red(_ops(), _red(cp, g2))
     assert _from_tensor(got) == _red_ints(want, g2)
+
+
+def _carry_edge_coords(n, g2, seed):
+    """n raw projective triples, off the curve, whose Montgomery words are
+    :func:`carry_edge_values` (chip_smoke.py holds the kernels to these
+    same plain results)."""
+    rng = np.random.default_rng(seed)
+    words = carry_edge_values(Q, rng)
+    rinv = pow(MONT_R, -1, Q)
+    vals = [words[i] * rinv % Q for i in
+            rng.integers(0, len(words), n * (6 if g2 else 3))]
+    if g2:
+        return [tuple(tuple(vals[6 * i + 2 * c:6 * i + 2 * c + 2])
+                      for c in range(3)) for i in range(n)]
+    return [tuple(vals[3 * i:3 * i + 3]) for i in range(n)]
+
+
+@pytest.mark.parametrize('g2', [False, True], ids=['g1', 'g2'])
+def test_add_double_match_red_core_on_carry_edges(g2):
+    """The RCB15 formulas are polynomials: on raw triples off the curve the
+    plain add and double still equal the red core's, word for word."""
+    cp, cq = _carry_edge_coords(32, g2, 5), _carry_edge_coords(32, g2, 6)
+    got = kernels.point_add(_to_tensor(cp, g2), _to_tensor(cq, g2), g2=g2)
+    dbl = kernels.point_double(_to_tensor(cp, g2), g2)
+    if g2:
+        want = fp_red.g2_add_red(_ops(), _b3(), _red(cp, g2), _red(cq, g2))
+        want_dbl = fp_red.g2_double_red(_ops(), _b3(), _red(cp, g2))
+    else:
+        want = fp_red.g1_add_red(_ops(), _red(cp, g2), _red(cq, g2))
+        want_dbl = fp_red.g1_double_red(_ops(), _red(cp, g2))
+    assert _from_tensor(got) == _red_ints(want, g2)
+    assert _from_tensor(dbl) == _red_ints(want_dbl, g2)
 
 
 def _affine(pt):

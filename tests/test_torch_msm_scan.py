@@ -16,7 +16,7 @@ from ethsnarks_tpu.bn254 import G1_GEN, G2_GEN, CURVE_ORDER, multiply, add
 from ethsnarks_tpu.ops.msm import default_window_bits, window_digits_host_np
 
 from ethsnarks_tpu_torch.groth16 import ProverContext
-from ethsnarks_tpu_torch.ops import curve, msm, msm_scan
+from ethsnarks_tpu_torch.ops import curve, fold, msm, msm_scan
 from ethsnarks_tpu_torch.ops.fp import ints_to_words_np
 from ethsnarks_tpu_torch.serialization import read_pk_binary, \
     r1cs_from_dict, witness_from_json
@@ -81,6 +81,85 @@ def test_seg_scan_one_run_over_every_tile():
     assert affine(got[2]) == affine(total)
     assert affine(got[1]) == affine(_host_msm([16] * 16, pts))
     assert affine(got[0]) == affine(pts[0])
+
+
+def _edge_scan_inputs(n, run_at, run_len, seed):
+    """Sorted keys over n elements: -2, -2, -1, -1 (never merging), runs
+    P, -P (P + (-P)), a run of one point repeated (P + P), one run of
+    run_len elements from run_at, random short runs after it; and the
+    index of each element's point among 8 multiples of the generator, their
+    negations and infinity (index 16)."""
+    rng = np.random.default_rng(seed)
+    keys = np.zeros(n, dtype=np.int64)
+    idx = rng.integers(0, 17, n)
+    keys[:4] = [-2, -2, -1, -1]
+    k, j = 0, 4
+    while j < run_at:
+        if j + 2 <= run_at and k % 3 < 2:
+            keys[j:j + 2] = k
+            idx[j], idx[j + 1] = k % 8, 8 + k % 8         # P then -P
+            j += 2
+        else:
+            keys[j] = k
+            j += 1
+        k += 1
+    keys[run_at - 8:run_at] = k                           # P + P
+    idx[run_at - 8:run_at] = 3
+    keys[run_at:run_at + run_len] = k + 1
+    keys[run_at + run_len:] = k + 2 + np.sort(
+        rng.integers(0, n // 4, n - run_at - run_len))
+    return keys, idx
+
+
+def _check_scan_by_value(g2, keys, idx, schedule, tile_local):
+    """K6's plain version (tile_local: one launch) or the whole scan against
+    the JAX package's host sums, and against multiples of the generator
+    by the runs' sums of labels."""
+    pts = host_points(8, g2)
+    gen = G2_GEN if g2 else G1_GEN
+    pts = pts + [multiply(p, CURVE_ORDER - 1) for p in pts] + [None]
+    label = [j + 1 for j in range(8)] + [-(j + 1) for j in range(8)] + [0]
+    P = (curve.g2_to_tensor if g2 else curve.g1_to_tensor)(pts, 'cpu')
+    kt, it = torch.from_numpy(keys), torch.from_numpy(idx)
+    if tile_local:
+        out = fold.seg_scan_tile_plain(P, kt, it, g2, schedule)
+        tile = schedule[1] << schedule[0]
+    else:
+        out = msm_scan.seg_scan(P, kt, it, g2, schedule)
+        tile = len(keys)
+    got = [affine(p) for p in
+           (curve.tensor_to_g2 if g2 else curve.tensor_to_g1)(out)]
+    neg = multiply(gen, CURVE_ORDER - 1)
+    acc, lab, times = None, 0, {0: None}
+    for j in range(len(keys)):
+        merge = j % tile > 0 and keys[j] == keys[j - 1] and keys[j] >= 0
+        acc = add(acc, pts[idx[j]]) if merge else pts[idx[j]]
+        lab = lab + label[idx[j]] if merge else label[idx[j]]
+        if lab not in times:
+            times[lab] = multiply(gen if lab > 0 else neg, abs(lab))
+        assert got[j] == affine(acc), j
+        assert got[j] == affine(times[lab]), j
+
+
+@pytest.mark.parametrize('g2,schedule,n,run_at,run_len,tile_local', [
+    (False, (0, 32), 512, 20, 480, False),   # a run over 16 tiles of 32
+    (False, (2, 32), 500, 40, 300, True),    # longer than a tile, one launch
+    (False, (2, 32), 500, 40, 300, False),
+    (False, (6, 2), 400, 30, 300, True),     # across the warps of a tile
+    (False, (7, 1), 460, 50, 400, False),    # four warps, every level
+    (False, None, 300, 24, 200, True),       # the default tiles, ragged
+    (True, (0, 32), 240, 20, 200, False),
+    (True, (6, 1), 200, 16, 150, True),
+], ids=['g1-16tiles', 'g1-long-one-launch', 'g1-long', 'g1-warps',
+        'g1-4warps', 'g1-default', 'g2-7tiles', 'g2-warps'])
+def test_seg_scan_schedule_edges(g2, schedule, n, run_at, run_len,
+                                 tile_local):
+    """K6's schedule (trailing runs, warp shuffles, warps serially, walks
+    from the carry) on its edge cases, by value."""
+    keys, idx = _edge_scan_inputs(n, run_at, run_len, 21 + n)
+    _check_scan_by_value(g2, keys, idx,
+                         fold.scan_schedule(g2, *(schedule or (None, None))),
+                         tile_local)
 
 
 def test_window_digits_host_np_matches_reference():

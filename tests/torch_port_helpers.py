@@ -44,3 +44,14 @@ def rand_scalars(n, seed, modulus):
     rng = np.random.default_rng(seed)
     return [int.from_bytes(rng.bytes(32), 'little') % modulus
             for _ in range(n)]
+
+
+def carry_edge_values(modulus, rng):
+    """Field values whose Montgomery words reach the CUDA field core's rare
+    carries: 0, 1, q - 1, q - 2^32, 2^255 mod q, and random values below q
+    whose 1..7 low 32-bit words are all ones."""
+    vals = [0, 1, modulus - 1, modulus - (1 << 32), (1 << 255) % modulus]
+    for k in range(1, 8):
+        vals.append((int.from_bytes(rng.bytes(32), 'little')
+                     | ((1 << (32 * k)) - 1)) % modulus)
+    return vals
