@@ -25,10 +25,15 @@ Phases (any mismatch fails the run with a non-zero exit):
    bit for bit, at 2^14 buckets or elements with identity, P + P and
    P + (-P) steps, empty buckets, never-merging negative keys and (K6) one
    run over 16 tiles, every prefix of which must equal its host sum, in
-   several schedules; then at the shapes of a 2^20 MSM, timed (K6 also
-   with all its levels of tiles; its plain version at 2^20 of its 2^24
-   elements), and K5 timed against the red MSM's pairfold on the same
-   buckets.  K7 int_probe, every
+   several schedules (K5: this card's, and those of other card sizes that
+   split a window over blocks, into parts of 6 buckets, or give it one
+   block); then at the shapes of a 2^20 MSM, timed (K5 at the scan MSM's
+   16 windows and the dense driver's 2 and 1 windows of 2^16 buckets, each with
+   its bound, schedule, registers and frame; K6 also with all its levels
+   of tiles; its plain version at 2^20 of its 2^24 elements), and K5 timed
+   against the red MSM's pairfold on the same buckets, which it must equal
+   by value.  K5's calls are also counted by window count over every run
+   of phases 5b (each MSM three times) and 6b.  K7 int_probe, every
    op, against its plain version (bit for bit; f32_fma to a relative
    1e-6), with the measured rates.
 3. setup of the fixture: the port's generator on the committed fixture's
@@ -777,14 +782,15 @@ def fold_check_buckets(base, rng, g2):
 
 
 def fold_check_schedules(c, g2):
-    """The default K5 schedule and two more that split a window over
-    several blocks (one with a bucket a thread), where c allows them."""
-    out = [fold.fold_schedule(c, g2)]
-    for log_t, log_m in ((4, 3), (5, 0)):
-        try:
-            out.append(fold.fold_schedule(c, g2, log_t, log_m))
-        except ValueError:
-            pass
+    """K5's schedule on this card for 16 windows of 2^c buckets, and
+    schedules of 32-thread blocks that split a window over several blocks
+    and its tail (132 x 3), into parts of a bucket count that is not a
+    power of two (100 x 1: 6 buckets a thread), and into one block a
+    window (2 x 1)."""
+    T = fold.FOLD_THREADS[g2]
+    out = [fold.fold_schedule(16, c, g2, *kernels.card_shape(DEV, g2))]
+    for sms, blocks in ((132, 3), (100, 1), (2, 1)):
+        out.append(fold.fold_schedule(16, c, g2, sms, blocks, 32))
     return out
 
 
@@ -811,10 +817,11 @@ def scan_check_inputs(base, rng, g2):
     return X, torch.from_numpy(keys).to(DEV), torch.from_numpy(idx).to(DEV)
 
 
-def phase_fused_kernels(rng):
+def phase_fused_kernels(rng, resources):
     """K5 and K6 against their plain versions, bit for bit, on the edge
-    cases and at the 2^20-MSM shapes (timed); K5 against the pairfold; K7
-    against its plain version, every op."""
+    cases and at the 2^20-MSM shapes (timed; K5 also at the dense driver's
+    2 windows); K5 against the pairfold; K7 against its plain version,
+    every op.  ``resources``: each kernel's registers and frame."""
     log("== phase 2c: K5 bucket_fold, K6 seg_scan, K7 int_probe vs plain "
         "versions")
     rec = {}
@@ -877,27 +884,42 @@ def phase_fused_kernels(rng):
             k2.name, "1 lane (generic window step)", ms,
             rec_k2["one_lane_bound_ms"]))
 
-        # the fold of a 2^20-point MSM: nw windows of 2^c buckets
-        dense = base[torch.from_numpy(rng.integers(0, 256, nw << c)).to(
-            DEV)].contiguous()
-        ms, got = cuda_ms(lambda: kernels.bucket_fold(dense, nw, c, g2))
-        plain_ms, want = cuda_ms(lambda: fold.bucket_fold_plain(
-            dense, nw, c, g2, fold.fold_schedule(c, g2)), warm=False)
-        shape5 = "%d windows x 2^%d buckets" % (nw, c)
-        errs5.append(same("K5 %s (%s)" % (k5.name, shape5), got, want))
-        pf_ms, pf = cuda_ms(lambda: msm.pairfold(dense, nw, c, g2), reps=3)
-        if to_host(pf) != to_host(got):
-            fail("K5 %s and the pairfold differ at %s" % (k5.name, shape5))
-        b5 = bound_ms(dense.numel() * 4 + nw * pb,
-                      nw * (2 * (1 << c) - 3) * OP_IMAD[("add", g2)])
-        rec[k5.name] = dict(max_abs_err=max(errs5), ms=ms, plain_ms=plain_ms,
-                            bound_ms=b5[0], bound_by=b5[1], shape=shape5,
-                            pairfold_ms=pf_ms)
+        # the fold of a 2^20-point MSM: the scan MSM's nw windows of 2^c
+        # buckets, and the dense driver's groups of 2 and 1 windows
+        sms, blocks = kernels.card_shape(DEV, g2)
+        for n_win in (nw, 2, 1):
+            dense = base[torch.from_numpy(rng.integers(
+                0, 256, n_win << c)).to(DEV)].contiguous()
+            sched5 = fold.fold_schedule(n_win, c, g2, sms, blocks)
+            ms, got = cuda_ms(lambda: kernels.bucket_fold(dense, n_win, c,
+                                                          g2))
+            plain_ms, want = cuda_ms(lambda: fold.bucket_fold_plain(
+                dense, n_win, c, g2, sched5), warm=False)
+            shape5 = "%d windows x 2^%d buckets" % (n_win, c)
+            errs5.append(same("K5 %s (%s, schedule %s)" % (
+                k5.name, shape5, sched5), got, want))
+            pf_ms, pf = cuda_ms(lambda: msm.pairfold(dense, n_win, c, g2),
+                                reps=3)
+            if to_host(pf) != to_host(got):
+                fail("K5 %s and the pairfold differ at %s" % (k5.name,
+                                                              shape5))
+            b5 = bound_ms(dense.numel() * 4 + n_win * pb,
+                          n_win * (2 * (1 << c) - 3) * OP_IMAD[("add", g2)])
+            r5 = dict(ms=ms, plain_ms=plain_ms, bound_ms=b5[0],
+                      bound_by=b5[1], shape=shape5, schedule=sched5,
+                      pairfold_ms=pf_ms)
+            if n_win == nw:
+                rec[k5.name] = dict(r5, by_windows={})
+            else:
+                rec[k5.name]["by_windows"][n_win] = r5
+            log("  %-16s %-30s kernel %10.4f ms  plain %10.2f ms  bound "
+                "%8.4f ms (%s); pairfold %8.4f ms on the same buckets; "
+                "schedule %s; %s" % (k5.name, shape5, ms, plain_ms, b5[0],
+                                     b5[1], pf_ms, sched5,
+                                     json.dumps(resources[k5.name])))
+            del dense, got, want, pf
+        rec[k5.name]["max_abs_err"] = max(errs5)
         rec[k2.name] = rec_k2
-        log("  %-16s %-30s kernel %10.4f ms  plain %10.2f ms  bound "
-            "%8.4f ms (%s); pairfold %8.4f ms on the same buckets"
-            % (k5.name, shape5, ms, plain_ms, b5[0], b5[1], pf_ms))
-        del dense, got, want, pf
 
         # the scan of a 2^20-point MSM: its sorted nonzero digits
         points = base.repeat((1 << FULL_LOG) // 256, *([1] * (base.dim() - 1)))
@@ -967,6 +989,18 @@ def phase_fused_kernels(rng):
            rates['u32_mul'], rates['u32_add']))
     rec[k7.name]["rates"] = rates
     return rec
+
+
+def counting_fold_windows(counts):
+    """kernels.bucket_fold that also counts its calls by curve and window
+    count in ``counts`` (the drivers call it through the module)."""
+    launch = kernels.bucket_fold
+
+    def counted(buckets, n_win, c, g2=False, *args, **kw):
+        key = "%s %d windows" % ("g2" if g2 else "g1", n_win)
+        counts[key] = counts.get(key, 0) + 1
+        return launch(buckets, n_win, c, g2, *args, **kw)
+    return counted
 
 
 # ---------------------------------------------------------------- phase 3
@@ -1200,13 +1234,17 @@ def main():
     rec = phase_kernels(rng, sorted(set(ctx.c.values())))
     card_state("after phase 2")
     rec.update(phase_k4(rng))
-    for name, r in phase_fused_kernels(rng).items():
+    for name, r in phase_fused_kernels(rng, resources).items():
         rec.setdefault(name, {}).update(r)
     card_state("after phase 2c")
     fixture_setup = phase_fixture_setup()
     launches, profiles = phase_prove(ctx)
     log("== phase 5: full size")
     card_state("before the MSMs")
+    # K5's calls by window count over every run of phases 5b and 6b
+    fold_windows = {}
+    bucket_fold = kernels.bucket_fold
+    kernels.bucket_fold = counting_fold_windows(fold_windows)
     full = {}
     for g2 in (False, True):
         tag = "msm_g2" if g2 else "msm_g1"
@@ -1219,6 +1257,9 @@ def main():
     log("  full-size results: %s" % json.dumps(full))
     log("  fixture prove profiles: %s" % json.dumps(profiles))
     path = phase_full_path()
+    kernels.bucket_fold = bucket_fold
+    log("  K5 calls by window count over every run of phases 5b and 6b: %s"
+        % json.dumps(fold_windows))
     card_state("after phase 6")
     entry = phase_entry_points()
     card_state("at the end")
@@ -1254,8 +1295,14 @@ def main():
                     "shape": r["shape"]})
         out[-1].update({key: r[key] for key in ("one_lane_ms", "pairfold_ms",
                                                 "plain_shape", "rates",
-                                                "all_levels_ms")
+                                                "all_levels_ms", "schedule",
+                                                "by_windows")
                         if key in r})
+        if k in kernels.BUCKET_FOLD.values():
+            tag = k.name[-2:] + " "
+            out[-1]["calls_by_windows"] = {
+                key[3:]: n for key, n in fold_windows.items()
+                if key.startswith(tag)}
         out[-1].update(resources[k.name])
         if not out[-1]["launches"]:
             fail("kernel %s was launched on no main path" % k.name)

@@ -1,31 +1,34 @@
 """Times this checkout's K1 ``point_add``, K5 ``bucket_fold`` and K6
-``seg_scan`` against the same kernels built from another checkout, in
-turns, on one CUDA card.
+``seg_scan`` against the same kernels of another checkout, in turns, on
+one CUDA card.
 
     python -m ethsnarks_tpu_torch.ab_kernels OTHER_ROOT
 
 OTHER_ROOT is another checkout of the repository, for example the parent
-commit unpacked with ``git archive``. Its ``csrc/msm_kernels.cu`` is
-compiled with this checkout's ``nvcc`` flags into
-``OTHER_ROOT/build/ab_kernels/`` and loaded with ``ctypes``; its K1, K5
-and K6 entry points must take the arguments this checkout's take. The
-shapes are those of the kernel table in ``PERF.md``, made as
-``chip_smoke.py`` makes them: K1 on 2^21 lanes gathered from 2^20 points;
-K5 on 16 windows of 2^16 buckets, in this checkout's schedule; K6 over the
-sorted nonzero window digits of 2^20 uniform scalars at c = 16, one launch
-with each checkout's own tile schedule (read from its ``ops/fold.py``),
-and the whole segmented scan (every level of tiles and the K1 carries,
-with this checkout's ``msm_scan.seg_scan``). After a warm-up of the card,
-each time is the mean of REPS launches (CUDA events), taken in the order
-other, this, this, other. K1's and K5's outputs must agree word for word;
-the scans' outputs must agree by value at 4,096 sampled elements. Prints
-one JSON line, then the card's name and power limit.
+commit unpacked with ``git archive``. Its ``ethsnarks_tpu_torch`` package
+is imported as ``other_port`` and builds its own kernels into
+``OTHER_ROOT/build/`` (the two checkouts' builds run together), so each
+kernel runs through its own checkout's wrapper, launch arguments and
+default schedule. The shapes are those of the kernel table in
+``PERF.md``, made as ``chip_smoke.py`` makes them: K1 on 2^21 lanes
+gathered from 2^20 points; K5 on 16 windows and on 2 windows of 2^16
+buckets (this checkout's K5 also in the schedules of the other block
+counts an SM up to its occupancy); K6 over the sorted nonzero window
+digits of 2^20 uniform scalars at c = 16, one launch and the whole
+segmented scan (every level of tiles and the K1 carries). After a warm-up
+of the card, each time is the mean of REPS launches (CUDA events), taken
+in the order other, this, this, other; this checkout's K5 variants after
+that, once each. K1's outputs must agree word for word; K5's (every
+window) and the scans' (4,096 sampled elements) by value, since their
+association orders may differ. Prints one JSON line, then the card's name
+and power limit.
 """
 
-import ctypes
+import concurrent.futures
+import importlib
+import importlib.util
 import json
 import os
-import re
 import subprocess
 import sys
 import time
@@ -42,86 +45,23 @@ from .ops.fp import ints_to_words_np
 SEED = 12345
 LOG_N = 20
 K1_LANES = 1 << 21
+K5_WINDOWS = (16, 2)        # the scan MSM's and the dense driver's groups
 SAMPLE = 4096
 REPS = 20
 
 
-def build_other(root):
-    """Compile OTHER_ROOT's msm_kernels.cu; returns the ctypes library."""
-    src = os.path.join(root, "ethsnarks_tpu_torch", "csrc",
-                       "msm_kernels.cu")
-    out_dir = os.path.join(root, "build", "ab_kernels")
-    os.makedirs(out_dir, exist_ok=True)
-    lib = os.path.join(out_dir, "msm_kernels.so")
-    if not os.path.exists(lib):
-        subprocess.run([_build._nvcc()] + _build.NVCC_FLAGS + ["-o", lib, src],
-                       check=True, stdout=subprocess.DEVNULL)
-    handle = ctypes.CDLL(lib)
-    for fn, argtypes in _build.LIBRARIES["msm_kernels"].items():
-        getattr(handle, fn).argtypes = argtypes
-        getattr(handle, fn).restype = ctypes.c_int
-    return handle
-
-
-def scan_schedule_of(root, g2):
-    """(log_t, items) of K6 by default in OTHER_ROOT's ops/fold.py."""
-    with open(os.path.join(root, "ethsnarks_tpu_torch", "ops",
-                           "fold.py")) as fh:
-        text = fh.read()
-    items = int(re.search(r"^SCAN_ITEMS = (\d+)", text, re.M).group(1))
-    log_t = re.search(r"^MAX_LOG_THREADS = \{False: (\d+), True: (\d+)\}",
-                      text, re.M).group(2 if g2 else 1)
-    return int(log_t), items
-
-
-def other_point_add(lib):
-    def add(P, Q, ia=None, ib=None, g2=False):
-        n = (ia if ia is not None else ib).shape[0]
-        out = torch.empty((n,) + curve.point_shape(g2), dtype=torch.int32,
-                          device=P.device)
-        fn = lib.esn_point_add_g2 if g2 else lib.esn_point_add_g1
-        rc = fn(P.data_ptr(), Q.data_ptr(),
-                None if ia is None else ia.data_ptr(),
-                None if ib is None else ib.data_ptr(), out.data_ptr(), n,
-                torch.cuda.current_stream().cuda_stream)
-        if rc:
-            raise RuntimeError("other point_add: CUDA error %d" % rc)
-        return out
-    return add
-
-
-def other_bucket_fold(lib):
-    def fold_(buckets, n_win, c, g2=False):
-        log_t, log_m, log_g = fold.fold_schedule(c, g2)
-        shape = curve.point_shape(g2)
-        out = torch.empty((n_win,) + shape, dtype=torch.int32,
-                          device=buckets.device)
-        part = torch.empty(((2 * n_win) << log_g,) + shape,
-                           dtype=torch.int32, device=buckets.device)
-        tickets = torch.zeros(n_win, dtype=torch.int32, device=buckets.device)
-        fn = lib.esn_bucket_fold_g2 if g2 else lib.esn_bucket_fold_g1
-        rc = fn(buckets.data_ptr(), out.data_ptr(), part.data_ptr(),
-                tickets.data_ptr(), n_win, c, log_t, log_m, log_g,
-                torch.cuda.current_stream().cuda_stream)
-        if rc:
-            raise RuntimeError("other bucket_fold: CUDA error %d" % rc)
-        return out
-    return fold_
-
-
-def other_seg_scan_tiles(lib):
-    def tiles(P, keys, idx=None, g2=False, schedule=None):
-        log_t, items = schedule
-        out = torch.empty((keys.shape[0],) + curve.point_shape(g2),
-                          dtype=torch.int32, device=P.device)
-        fn = lib.esn_seg_scan_g2 if g2 else lib.esn_seg_scan_g1
-        rc = fn(P.data_ptr(), None if idx is None else idx.data_ptr(),
-                keys.data_ptr(), out.data_ptr(), keys.shape[0], log_t, items,
-                torch.cuda.current_stream().cuda_stream)
-        if rc:
-            raise RuntimeError("other seg_scan: CUDA error %d" % rc)
-        return out
-    return tiles
+def load_other(root):
+    """OTHER_ROOT's package as ``other_port``: {module name: module} of its
+    ops._build, ops.kernels and ops.msm_scan."""
+    pkg = os.path.join(root, "ethsnarks_tpu_torch")
+    spec = importlib.util.spec_from_file_location(
+        "other_port", os.path.join(pkg, "__init__.py"),
+        submodule_search_locations=[pkg])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules["other_port"] = mod
+    spec.loader.exec_module(mod)
+    return {name: importlib.import_module("other_port.ops." + name)
+            for name in ("_build", "kernels", "msm_scan")}
 
 
 def cuda_ms(fn, reps=REPS):
@@ -165,8 +105,23 @@ def same_words(name, a, b):
 def same_values(rows, g2):
     def check(name, a, b):
         if curve.affine_ints(a[rows], g2) != curve.affine_ints(b[rows], g2):
-            raise SystemExit("FAIL: %s: the two scans differ by value" % name)
+            raise SystemExit("FAIL: %s: the two outputs differ by value"
+                             % name)
     return check
+
+
+def fold_variants(dense, nw, c, g2, dev):
+    """This checkout's K5 in the schedules of 1 .. occupancy blocks an SM,
+    but for its default's."""
+    sms, occ = kernels.fold_occupancy(dev, g2)
+    default = kernels.card_shape(dev, g2)[1]
+    out = {}
+    for b in range(1, occ + 1):
+        if b != default:
+            sched = fold.fold_schedule(nw, c, g2, sms, b)
+            out["%d blocks an SM %s" % (b, sched)] = (
+                lambda s=sched: kernels.bucket_fold(dense, nw, c, g2, s))
+    return out
 
 
 def main(argv):
@@ -176,10 +131,12 @@ def main(argv):
         raise SystemExit("ab_kernels: no CUDA device")
     other_root = os.path.abspath(argv[0])
     dev = torch.device("cuda")
-    _build.build()
-    lib = build_other(other_root)
-    o_add, o_tiles = other_point_add(lib), other_seg_scan_tiles(lib)
-    o_fold = other_bucket_fold(lib)
+    other = load_other(other_root)
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        for job in [pool.submit(_build.build),
+                    pool.submit(other["_build"].build)]:
+            job.result()
+    o_kernels, o_scan = other["kernels"], other["msm_scan"]
     rng = np.random.default_rng(SEED)
     rec = {}
     c = msm.best_c(1 << LOG_N)
@@ -200,22 +157,34 @@ def main(argv):
         ia = torch.from_numpy(rng.integers(0, 1 << LOG_N, K1_LANES)).to(dev)
         ib = torch.from_numpy(rng.integers(0, 1 << LOG_N, K1_LANES)).to(dev)
         ms = in_turns("point_add_" + tag, {
-            "other": lambda: o_add(table, table, ia, ib, g2),
+            "other": lambda: o_kernels.point_add(table, table, ia, ib, g2),
             "this": lambda: kernels.point_add(table, table, ia, ib, g2)},
             same_words)
         pb = point_bytes(g2)
         b1 = bound_ms(table.numel() * 4 + 16 * K1_LANES + pb * K1_LANES,
                       K1_LANES * OP_IMAD[("add", g2)])
         rec["point_add_" + tag] = dict(ms, bound_ms=b1[0], bound_by=b1[1])
-        dense = table[:nw << c].contiguous()
-        ms = in_turns("bucket_fold_" + tag, {
-            "other": lambda: o_fold(dense, nw, c, g2),
-            "this": lambda: kernels.bucket_fold(dense, nw, c, g2)},
-            same_words)
-        b5 = bound_ms(dense.numel() * 4 + nw * pb,
-                      nw * (2 * (1 << c) - 3) * OP_IMAD[("add", g2)])
-        rec["bucket_fold_" + tag] = dict(ms, bound_ms=b5[0], bound_by=b5[1])
-        del table, ia, ib, dense
+        for n_win in K5_WINDOWS:
+            dense = table[:n_win << c].contiguous()
+            name = "bucket_fold_%s_%dx2^%d" % (tag, n_win, c)
+            every = torch.arange(n_win, device=dev)
+            check = same_values(every, g2)
+            ms = in_turns(name, {
+                "other": lambda: o_kernels.bucket_fold(dense, n_win, c, g2),
+                "this": lambda: kernels.bucket_fold(dense, n_win, c, g2)},
+                check)
+            want = kernels.bucket_fold(dense, n_win, c, g2)
+            for label, fn in fold_variants(dense, n_win, c, g2,
+                                           dev).items():
+                t, got = cuda_ms(fn)
+                check(name + " " + label, want, got)
+                ms[label] = t
+                print("  %-22s %s: %s ms" % (name, label, t), flush=True)
+            b5 = bound_ms(dense.numel() * 4 + n_win * pb,
+                          n_win * (2 * (1 << c) - 3) * OP_IMAD[("add", g2)])
+            rec[name] = dict(ms, bound_ms=b5[0], bound_by=b5[1])
+            del dense, want
+        del table, ia, ib
 
         points = base.repeat((1 << LOG_N) // 256,
                              *([1] * (base.dim() - 1))).contiguous()
@@ -227,22 +196,17 @@ def main(argv):
                                         )).to(dev)
         merges = int((keys[1:] == keys[:-1]).sum())
         b6 = bound_ms(n * (16 + 2 * pb), merges * OP_IMAD[("add", g2)])
-        o_sched = scan_schedule_of(other_root, g2)
-        t_sched = fold.scan_schedule(g2)
         one = in_turns("seg_scan_%s one launch" % tag, {
-            "other": lambda: o_tiles(points, keys, src, g2, o_sched),
-            "this": lambda: kernels.seg_scan_tiles(points, keys, src, g2,
-                                                   t_sched)},
-            lambda *a: None)
+            "other": lambda: o_kernels.seg_scan_tiles(points, keys, src, g2),
+            "this": lambda: kernels.seg_scan_tiles(points, keys, src, g2)},
+            same_values(rows, g2))
         full = in_turns("seg_scan_%s all levels" % tag, {
-            "other": lambda: msm_scan.seg_scan(points, keys, src, g2,
-                                               o_sched, o_tiles, o_add),
+            "other": lambda: o_scan.seg_scan(points, keys, src, g2),
             "this": lambda: msm_scan.seg_scan(points, keys, src, g2)},
             same_values(rows, g2))
         rec["seg_scan_" + tag] = dict(
             one_launch=one, all_levels=full, keys=n, merges=merges,
-            schedule={"other": o_sched, "this": t_sched}, bound_ms=b6[0],
-            bound_by=b6[1])
+            bound_ms=b6[0], bound_by=b6[1])
         del points, words, keys, src
         torch.cuda.empty_cache()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -44,10 +44,12 @@ LIBRARIES = {
                                   _VOID],
         "esn_fixed_base_mul_g2": [_VOID, _VOID, _VOID, _INT, _INT, _INT,
                                   _VOID],
-        "esn_bucket_fold_g1": [_VOID, _VOID, _VOID, _VOID, _INT, _INT, _INT,
+        "esn_bucket_fold_g1": [_VOID, _VOID, _VOID, _INT, _INT, _INT, _INT,
                                _INT, _INT, _VOID],
-        "esn_bucket_fold_g2": [_VOID, _VOID, _VOID, _VOID, _INT, _INT, _INT,
+        "esn_bucket_fold_g2": [_VOID, _VOID, _VOID, _INT, _INT, _INT, _INT,
                                _INT, _INT, _VOID],
+        "esn_bucket_fold_blocks_g1": [_INT],
+        "esn_bucket_fold_blocks_g2": [_INT],
         "esn_seg_scan_g1": [_VOID, _VOID, _VOID, _VOID, _INT, _INT, _INT,
                             _VOID],
         "esn_seg_scan_g2": [_VOID, _VOID, _VOID, _VOID, _INT, _INT, _INT,

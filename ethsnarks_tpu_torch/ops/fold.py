@@ -18,7 +18,13 @@ from . import curve
 
 # threads per block of the kernels (FusedCfg in msm_fused_kernels.cu)
 MAX_LOG_THREADS = {False: 7, True: 6}
-FOLD_LOG_CHUNK = 4          # buckets a thread walks, log2, by default
+FOLD_THREADS = {g2: 1 << t for g2, t in MAX_LOG_THREADS.items()}
+# the most K5 blocks an SM its default schedule fills: on an H100 G1 ran
+# slower at its occupancy of 3 than at 2 (PERF.md); G2 fills its 4
+FOLD_MAX_BLOCKS = {False: 2, True: 4}
+# K5's (SMs, blocks an SM) where no card is asked (the plain version on
+# the CPU): an H100's SMs at two blocks each
+PLAIN_CARD = (132, 2)
 SCAN_ITEMS = 64             # elements a thread walks
 
 
@@ -54,72 +60,171 @@ def _add_where(mask, p, q, other, g2):
 
 # ---------------------------------------------------------------- K5
 
-def fold_schedule(c, g2, log_t=None, log_m=None):
-    """(log_t, log_m, log_g) of K5 for 2^c buckets a window: 2^log_t
-    threads a block, 2^log_m buckets a thread, 2^log_g blocks a window,
-    log_t + log_m + log_g = c, and 2^log_g <= 2^log_t (the last block of a
-    window combines the blocks' pairs with its threads).  Default: chunks
-    of 2^FOLD_LOG_CHUNK buckets (fewer at small c), the widest block that
-    leaves, longer chunks where the blocks would outnumber a block's
-    threads."""
-    if log_t is None:
-        log_t = min(c - min(c, FOLD_LOG_CHUNK), MAX_LOG_THREADS[g2])
-    if not 0 <= log_t <= min(c, MAX_LOG_THREADS[g2]):
-        raise ValueError("bucket_fold: 2^%d threads a block for 2^%d "
-                         "buckets" % (log_t, c))
-    rest = c - log_t
-    if log_m is None:
-        log_m = rest - min(max(rest - FOLD_LOG_CHUNK, 0), log_t)
-    log_g = rest - log_m
-    if not 0 <= log_g <= log_t or log_m < 0:
-        raise ValueError("bucket_fold: no schedule with 2^%d threads, 2^%d "
-                         "buckets a thread for c = %d" % (log_t, log_m, c))
-    return log_t, log_m, log_g
+def fold_schedule(n_win, c, g2, sms, blocks_per_sm, threads=None):
+    """(threads, m, blocks) of K5 for n_win windows of 2^c buckets on a
+    card of ``sms`` SMs that holds ``blocks_per_sm`` K5 blocks each: blocks
+    of ``threads`` (default FOLD_THREADS), m buckets a thread, ``blocks``
+    blocks a window.  The windows share one wave of sms * blocks_per_sm
+    blocks; m is the fewest buckets a thread that lets a window's share
+    cover its 2^c buckets (any count, not only a power of two), and the
+    window takes only the blocks its ceil(2^c / m) parts fill."""
+    if n_win < 1 or not 0 <= c <= 30 or sms < 1 or blocks_per_sm < 1:
+        raise ValueError("bucket_fold: no schedule for n_win=%d, c=%d on "
+                         "%d SMs x %d blocks" % (n_win, c, sms,
+                                                 blocks_per_sm))
+    T = FOLD_THREADS[g2] if threads is None else threads
+    n = 1 << c
+    per_win = max(1, sms * blocks_per_sm // n_win)
+    m = -(-n // (per_win * T))
+    return check_schedule(c, g2, (T, m, -(-(-(-n // m)) // T)))
 
 
-def _fold_combine(R, W, s, g2):
-    """The kernel's fold_combine on (blocks, n, *point) pairs: per block
-    (sum_i R_i, sum_i W_i + 2^s sum_i i R_i)."""
-    n = R.shape[1]
-    d = 1
-    while d < n:
-        R = torch.cat([_add(R[:, :n - d], R[:, d:], g2), R[:, n - d:]], 1)
-        d <<= 1
-    r = R[:, 0]
-    R = torch.cat([curve.identity(R.shape[0], g2, R.device)[:, None],
-                   R[:, 1:]], 1)
-    h = n >> 1
-    while h >= 1:
-        R = _add(R[:, :h], R[:, h:2 * h], g2)
-        W = _add(W[:, :h], W[:, h:2 * h], g2)
-        h >>= 1
-    x = R[:, 0]
-    for _ in range(s):
+def check_schedule(c, g2, schedule):
+    """The schedule as ints; raises unless its blocks are of 32, 64 or 128
+    threads (at most FOLD_THREADS) and cover 2^c buckets."""
+    T, m, blocks = (int(v) for v in schedule)
+    if T not in (32, 64, 128) or T > FOLD_THREADS[g2] or m < 1 or \
+            blocks < 1 or blocks * T * m < 1 << c or m >= 1 << 31 or \
+            blocks >= 1 << 31:
+        raise ValueError("bucket_fold: schedule %r for 2^%d buckets"
+                         % (tuple(schedule), c))
+    return T, m, blocks
+
+
+def tail_threads(n_blk, T):
+    """Threads of K5's tail launch over a window's n_blk partials: q =
+    ceil(n_blk / T) partials a thread, and the fewest warps, a power of two
+    of them, that give each of its ceil(n_blk / q) threads one lane."""
+    q = -(-n_blk // T)
+    warps = -(-(-(-n_blk // q)) // 32)
+    return 32 << (warps - 1).bit_length()
+
+
+def _scale(p, k, g2):
+    """k p for k >= 1, double-and-add from the top bit (the kernel's
+    scale)."""
+    x = p
+    for b in range(k.bit_length() - 2, -1, -1):
         x = _double(x, g2)
-    return r, _add(W[:, 0], x, g2)
+        if (k >> b) & 1:
+            x = _add(x, p, g2)
+    return x
+
+
+def _warp_fold(r, a, width, g2):
+    """The kernel's warp_fold on (batch, lanes >= width, *point) pairs:
+    per batch row (sum_l r_l, sum_l (a_l + l r_l)) over lanes l < width."""
+    if width > 1:
+        d = 1
+        while d < width:
+            r = torch.cat([_add(r[:, :width - d], r[:, d:width], g2),
+                           r[:, width - d:]], 1)
+            d <<= 1
+        a = torch.cat([a[:, :1], _add(a[:, 1:width], r[:, 1:width], g2),
+                       a[:, width:]], 1)
+        d = width >> 1
+        while d >= 1:
+            a = torch.cat([_add(a[:, :d], a[:, d:2 * d], g2), a[:, d:]], 1)
+            d >>= 1
+    return r[:, 0], a[:, 0]
+
+
+def _walk(items, weights, g2):
+    """The kernel's walk of each lane's items (lanes, n, *point), item 0
+    first, from the top: (run, acc) = (sum r_i, sum_i (a_i + i r_i)); a_i
+    from ``weights`` (pass 1), or none (pass 0: buckets)."""
+    n = items.shape[1]
+    run = items[:, n - 1]
+    tail = weights is not None
+    acc = weights[:, n - 1] if tail else curve.identity(
+        items.shape[0], g2, items.device)
+    S = 3 if tail else 2
+    k = 0
+    if not tail and n > 1:
+        acc, k = run, 1
+    for k in range(k, (n - 1) * S):
+        i, s = n - 2 - k // S, k % S
+        if s == 0:
+            acc = _add(acc, run, g2)
+        elif s == 1:
+            run = _add(run, items[:, i], g2)
+        else:
+            acc = _add(acc, weights[:, i], g2)
+    return run, acc
+
+
+def _block_fold(run, acc, span, T, partial, g2):
+    """The kernel's levels on (blocks, T, *point) walks, each a scale of r
+    to the lanes' span and a warp fold: the lanes of each warp, then (T >
+    32) the warps of each block; a partial's r is then scaled to the
+    block's span."""
+    shape = curve.point_shape(g2)
+    nw = T // 32
+    r, a = _warp_fold(_scale(run, span, g2).reshape((-1, 32) + shape),
+                      acc.reshape((-1, 32) + shape), 32, g2)
+    k = 32
+    if nw > 1:
+        r, a = _warp_fold(_scale(r, 32, g2).reshape((-1, nw) + shape),
+                          a.reshape((-1, nw) + shape), nw, g2)
+        k = nw
+    return (_scale(r, k, g2) if partial else r), a
+
+
+def _pad(P, count, g2):
+    """(rows, n, *point) -> (rows, count, *point), identities appended."""
+    extra = count - P.shape[1]
+    if extra == 0:
+        return P
+    ident = curve.identity(P.shape[0] * extra, g2, P.device).reshape(
+        (P.shape[0], extra) + P.shape[2:])
+    return torch.cat([P, ident], 1)
+
+
+def _lane_walks(P, A, n_items, limit, T, g2):
+    """The walks of (n_win, lanes * n_items, *point) items P (weights A in
+    pass 1, else None), n_items a lane; a lane whose first item lies at or
+    past ``limit`` is the identity.  Returns (run, acc) as (blocks, T,
+    *point)."""
+    n_win, lanes = P.shape[0], P.shape[1] // n_items
+    shape = curve.point_shape(g2)
+    rows = (n_win * lanes, n_items) + shape
+    run, acc = _walk(P.reshape(rows), None if A is None else A.reshape(rows),
+                     g2)
+    empty = (torch.arange(lanes, device=P.device) * n_items >= limit).repeat(
+        n_win)
+    ident = curve.identity(n_win * lanes, g2, P.device)
+    blk = (-1, T) + shape
+    return (_where(empty, ident, run).reshape(blk),
+            _where(empty, ident, acc).reshape(blk))
+
+
+def fold_tail_plain(r, a, T, g2=False):
+    """K5's tail launch on (n_win, blocks, *point) partials, r_g the
+    block's span times its sum and a_g its weighted sum: per window
+    sum_g (a_g + g r_g), by T threads of ceil(blocks / T) partials each."""
+    n_blk = r.shape[1]
+    q = -(-n_blk // T)
+    run, acc = _lane_walks(_pad(r, T * q, g2), _pad(a, T * q, g2), q, n_blk,
+                           T, g2)
+    return _block_fold(run, acc, q, T, False, g2)[1]
 
 
 def bucket_fold_plain(buckets, n_win, c, g2=False, schedule=None):
     """(n_win * 2^c, *point) window-major buckets -> (n_win, *point)
     sum_b b * S_b per window, in the order of the K5 kernel run with
-    ``schedule`` (:func:`fold_schedule`)."""
-    log_t, log_m, log_g = schedule or fold_schedule(c, g2)
+    ``schedule`` (:func:`fold_schedule`; default: that of PLAIN_CARD)."""
+    T, m, n_blk = check_schedule(c, g2, schedule or fold_schedule(
+        n_win, c, g2, *PLAIN_CARD))
     shape = curve.point_shape(g2)
-    m = 1 << log_m
-    B = buckets.reshape((-1, m) + shape)      # lane (w, g, t), its buckets
-    run = B[:, m - 1]
-    acc = curve.identity(B.shape[0], g2, B.device) if m == 1 else run
-    for i in range(m - 2, -1, -1):
-        run = _add(run, B[:, i], g2)
-        if i > 0:
-            acc = _add(acc, run, g2)
-    blk = (n_win << log_g, 1 << log_t) + shape
-    r, w = _fold_combine(run.reshape(blk), acc.reshape(blk), log_m, g2)
-    if log_g == 0:
-        return w.contiguous()
-    win = (n_win, 1 << log_g) + shape
-    _, w = _fold_combine(r.reshape(win), w.reshape(win), log_t + log_m, g2)
-    return w.contiguous()
+    n = 1 << c
+    B = _pad(buckets.reshape((n_win, n) + shape), n_blk * T * m, g2)
+    run, acc = _lane_walks(B, None, m, n, T, g2)
+    r, a = _block_fold(run, acc, m, T, n_blk > 1, g2)
+    if n_blk == 1:
+        return a.contiguous()
+    blk = (n_win, n_blk) + shape
+    return fold_tail_plain(r.reshape(blk), a.reshape(blk),
+                           tail_threads(n_blk, T), g2).contiguous()
 
 
 # ---------------------------------------------------------------- K6

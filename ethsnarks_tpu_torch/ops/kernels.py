@@ -86,6 +86,9 @@ BUCKET_FOLD = {
     True: Kernel("bucket_fold_g2", "esn_bucket_fold_g2",
                  _at(_PALLAS_MSM, 484), FUSED_SOURCE),
 }
+# K5's occupancy query (blocks an SM for a block of the given threads)
+BLOCKS_PER_SM = {False: "esn_bucket_fold_blocks_g1",
+                 True: "esn_bucket_fold_blocks_g2"}
 # The reference scans G1 only (_k_scan); its G2 generic MSM scans with the
 # same monoid in XLA.  K6 G2 is that scan on the card.
 SEG_SCAN = {
@@ -243,29 +246,60 @@ def fixed_base_mul(table, scalars, n_win, c, g2=False):
     return out
 
 
+_occupancy = {}
+
+
+def fold_occupancy(device, g2):
+    """(SMs, resident K5 blocks of ``fold.FOLD_THREADS`` threads an SM) of
+    a CUDA device, read once: the SM count from the device's properties,
+    the blocks from CUDA's occupancy query on the built kernel."""
+    key = (device.index if device.index is not None
+           else torch.cuda.current_device(), g2)
+    if key not in _occupancy:
+        with torch.cuda.device(key[0]):
+            sms = torch.cuda.get_device_properties(key[0]).multi_processor_count
+            blocks = function(BLOCKS_PER_SM[g2])(fold.FOLD_THREADS[g2])
+        if blocks < 1:
+            raise RuntimeError("bucket_fold: occupancy query failed (%d)"
+                               % blocks)
+        _occupancy[key] = (sms, blocks)
+    return _occupancy[key]
+
+
+def card_shape(device, g2):
+    """(SMs, K5 blocks an SM) that K5's default schedule fills on a CUDA
+    device: its occupancy (:func:`fold_occupancy`), at most
+    ``fold.FOLD_MAX_BLOCKS``."""
+    sms, blocks = fold_occupancy(device, g2)
+    return sms, min(blocks, fold.FOLD_MAX_BLOCKS[g2])
+
+
 def bucket_fold(buckets, n_win, c, g2=False, schedule=None):
     """K5: (n_win * 2^c, *point) window-major buckets -> (n_win, *point)
-    sum_b b * S_b per window.  ``schedule``: (log_t, log_m, log_g) of
-    :func:`.fold.fold_schedule` (default: its default for c)."""
+    sum_b b * S_b per window.  ``schedule``: (threads, m, blocks) of
+    :func:`.fold.fold_schedule`; default: one wave on this card
+    (:func:`card_shape`), or on ``fold.PLAIN_CARD`` for CPU tensors.
+    One call is one launch of K5's grid and, where a window has more than
+    one block, one of its tail."""
     _check_points(buckets, g2, "bucket_fold")
     if n_win < 1 or not 0 <= c <= 24 or buckets.shape[0] != n_win << c:
         raise ValueError("bucket_fold: %d buckets for n_win=%d, c=%d"
                          % (buckets.shape[0], n_win, c))
     if n_win >= 1 << 16:
         raise ValueError("bucket_fold: %d windows exceed the grid" % n_win)
-    schedule = fold.fold_schedule(c, g2, *(schedule or (None, None))[:2])
     if not _on_card(buckets):
         return fold.bucket_fold_plain(buckets, n_win, c, g2, schedule)
-    log_t, log_m, log_g = schedule
     dev = buckets.device
-    out = torch.empty((n_win,) + curve.point_shape(g2), dtype=torch.int32,
-                      device=dev)
-    part = torch.empty(((2 * n_win) << log_g,) + curve.point_shape(g2),
-                       dtype=torch.int32, device=dev)
-    tickets = torch.zeros(n_win, dtype=torch.int32, device=dev)
+    if schedule is None:
+        schedule = fold.fold_schedule(n_win, c, g2, *card_shape(dev, g2))
+    T, m, n_blk = fold.check_schedule(c, g2, schedule)
+    shape = curve.point_shape(g2)
+    out = torch.empty((n_win,) + shape, dtype=torch.int32, device=dev)
+    part = torch.empty(((2 * n_win) * n_blk,) + shape, dtype=torch.int32,
+                       device=dev)
     BUCKET_FOLD[g2].launch(buckets.data_ptr(), out.data_ptr(),
-                           part.data_ptr(), tickets.data_ptr(), n_win, int(c),
-                           log_t, log_m, log_g, _stream(dev))
+                           part.data_ptr(), n_win, int(c), T, m, n_blk,
+                           fold.tail_threads(n_blk, T), _stream(dev))
     return out
 
 

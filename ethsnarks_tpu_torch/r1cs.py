@@ -163,12 +163,24 @@ class ConstraintSystem(object):
     def add_constraint(self, a, b, c, annotation=''):
         self.constraints.append(Constraint(a, b, c, annotation))
 
-    def is_satisfied(self, values=None):
+    def is_satisfied(self, verbose=False, values=None):
         """Every constraint holds for ``values`` (default: the system's
-        own)."""
+        own).  With ``verbose``, the first constraint that fails is
+        printed as the reference prints it (``ethsnarks_tpu/r1cs.py``
+        :190-201)."""
         values = self.values if values is None else values
-        return all(cons.a.evaluate(values) * cons.b.evaluate(values) % P
-                   == cons.c.evaluate(values) for cons in self.constraints)
+        for i, cons in enumerate(self.constraints):
+            av = cons.a.evaluate(values)
+            bv = cons.b.evaluate(values)
+            cv = cons.c.evaluate(values)
+            if av * bv % P != cv:
+                if verbose:
+                    print("Constraint %d unsatisfied: %s"
+                          % (i, cons.annotation))
+                    print("  a=%d b=%d a*b=%d c=%d"
+                          % (av, bv, av * bv % P, cv))
+                return False
+        return True
 
     def to_coo(self):
         """{'a'|'b'|'c': (rows int64, cols int64, coeffs list of ints)}."""

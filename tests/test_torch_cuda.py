@@ -160,16 +160,31 @@ def test_setup_reproduces_fixture_key(card, tmp_path):
         assert kp.vk.to_json() == fh.read()
 
 
+# (n_win, c, SMs, blocks an SM, threads a block) of tests/test_torch_fold.py
+FOLD_CASES = [(1, 7, 132, 3, 32), (2, 6, 132, 4, 32), (16, 4, 132, 3, 32),
+              (1, 7, 2, 1, 32), (2, 7, 2, 1, 32), (16, 4, 2, 1, None),
+              (1, 6, 2, 1, 32), (1, 8, 3, 1, 32), (1, 11, 132, 3, 32)]
+
+
 @pytest.mark.parametrize('g2', [False, True], ids=['g1', 'g2'])
 def test_fold_and_scan_kernels_match_plain(card, g2):
-    """K5 in three schedules (one thread, blocks and tickets), K6 one
-    launch and all levels, against their plain versions on the card."""
+    """K5 in this card's schedule and in those of the CPU tests (several
+    blocks a window and the tail launch, parts of 3 buckets, two partials
+    a tail thread), K6 one launch and all levels, against their plain
+    versions on the card."""
     B = _points(16 << 6, g2, card, 6)
-    for sched in (fold.fold_schedule(6, g2), (2, 2), (3, 0)):
-        full = fold.fold_schedule(6, g2, *sched[:2])
-        got = kernels.bucket_fold(B, 16, 6, g2, sched)
+    sms, blocks = kernels.card_shape(card, g2)
+    got = kernels.bucket_fold(B, 16, 6, g2)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fold.bucket_fold_plain(
+        B, 16, 6, g2, fold.fold_schedule(16, 6, g2, sms, blocks)))
+    for n_win, c, sms, blocks, threads in FOLD_CASES:
+        sched = fold.fold_schedule(n_win, c, g2, sms, blocks, threads)
+        B = _points(n_win << c, g2, card, c)
+        got = kernels.bucket_fold(B, n_win, c, g2, sched)
         torch.cuda.synchronize()
-        assert torch.equal(got, fold.bucket_fold_plain(B, 16, 6, g2, full))
+        assert torch.equal(got, fold.bucket_fold_plain(B, n_win, c, g2,
+                                                       sched))
     rng = np.random.default_rng(7)
     n = 3000
     keys = np.sort(rng.integers(0, 200, n))

@@ -52,15 +52,15 @@ def _dense(scalars, points, c, digits=None, g2=False, **kw):
 
 
 @pytest.mark.parametrize('g2,schedule', [
-    (False, None), (False, (2, 2)), (False, (2, 1)), (False, (0, 5)),
-    (True, None), (True, (2, 1))],
+    (False, None), (False, (32, 2, 2)), (False, (32, 1, 4)),
+    (False, (32, 128, 1)), (True, None), (True, (32, 1, 4))],
     ids=['g1', 'g1-2-blocks', 'g1-4-blocks', 'g1-1-thread', 'g2',
          'g2-4-blocks'])
 def test_bucket_fold_plain_matches_host(g2, schedule):
     """K5's plain version, in every schedule shape (several threads and
-    blocks a window, chunks of 1-32 buckets), with empty buckets, against
+    blocks a window, parts of 1-128 buckets), with empty buckets, against
     the host sum_b b * S_b of each window."""
-    c, nw = 5, 2
+    c, nw = 7, 2
     pts = host_points(8, g2) + [None]
     rng = np.random.default_rng(7)
     sel = rng.integers(0, len(pts), nw << c)
@@ -75,15 +75,29 @@ def test_bucket_fold_plain_matches_host(g2, schedule):
 
 
 def test_fold_schedule_splits_a_window():
-    assert fold.fold_schedule(16, False) == (7, 4, 5)
-    assert fold.fold_schedule(16, True) == (6, 4, 6)
-    assert fold.fold_schedule(7, False) == (3, 4, 0)
-    for c in range(1, 25):
-        for g2 in (False, True):
-            lt, lm, lg = fold.fold_schedule(c, g2)
-            assert lt + lm + lg == c and 0 <= lg <= lt
+    """One wave of blocks on the card, shared by the windows: 16 windows
+    of 2^16 buckets on 132 SMs of 2 G1 blocks take 16 blocks a window of
+    32 buckets a thread, 2 windows 128 blocks of 4 buckets a thread; at 3
+    blocks an SM, 24 blocks of 22 buckets and 171 blocks of 3."""
+    assert fold.fold_schedule(16, 16, False, 132, 2) == (128, 32, 16)
+    assert fold.fold_schedule(2, 16, False, 132, 2) == (128, 4, 128)
+    assert fold.fold_schedule(16, 16, False, 132, 3) == (128, 22, 24)
+    assert fold.fold_schedule(2, 16, False, 132, 3) == (128, 3, 171)
+    assert fold.fold_schedule(16, 16, True, 132, 4) == (64, 32, 32)
+    assert fold.fold_schedule(1, 7, False, 2, 1, 32) == (32, 2, 2)
+    assert fold.fold_schedule(1, 8, False, 3, 1, 32) == (32, 3, 3)
+    for c in range(0, 25):
+        for n_win in (1, 2, 16, 500):
+            for g2, sms, blocks in ((False, 132, 3), (True, 132, 4),
+                                    (False, 2, 1)):
+                T, m, n_blk = fold.fold_schedule(n_win, c, g2, sms, blocks)
+                assert fold.check_schedule(c, g2, (T, m, n_blk))
+                assert (n_blk - 1) * T * m < 1 << c <= n_blk * T * m
+                assert n_win * n_blk <= max(n_win, sms * blocks)
     with pytest.raises(ValueError):
-        fold.fold_schedule(6, False, 1, 0)        # 32 blocks > 2 threads
+        fold.fold_schedule(1, 6, True, 132, 3, 128)   # G2 blocks: 64
+    with pytest.raises(ValueError):
+        fold.check_schedule(8, False, (32, 2, 3))      # 192 < 256 buckets
 
 
 def test_window_ks_and_nice_k_match_reference():

@@ -104,8 +104,8 @@ def test_constraint_system_from_dict():
     cs = r1cs_from_dict(r1cs_to_dict(pb))
     assert (cs.num_inputs, cs.num_variables, cs.num_constraints) == \
         (pb.num_inputs, pb.num_variables, pb.num_constraints)
-    assert cs.is_satisfied(pb.values)
-    assert not cs.is_satisfied([1, 36] + pb.values[2:])
+    assert cs.is_satisfied(values=pb.values)
+    assert not cs.is_satisfied(values=[1, 36] + pb.values[2:])
     want, got = pb.to_coo(), cs.to_coo()
     for name in 'abc':
         assert sorted(zip(*map(list, want[name][:2]), want[name][2])) == \

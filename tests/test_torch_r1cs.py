@@ -10,6 +10,7 @@ import pytest
 from ethsnarks_tpu.keccak import keccak_256 as ref_keccak
 from ethsnarks_tpu.mimc import mimc as ref_mimc
 from ethsnarks_tpu.mimc import mimc_constants as ref_constants
+from ethsnarks_tpu.r1cs import ConstraintSystem as RefConstraintSystem
 
 from ethsnarks_tpu_torch.keccak import keccak_256
 from ethsnarks_tpu_torch.mimc import mimc, mimc_constants
@@ -54,7 +55,38 @@ def test_chain_qap_compiles(chains):
     assert qap.domain_size == 512
     wrong = list(got.values)
     wrong[1] += 1
-    assert not got.is_satisfied(wrong)
+    assert not got.is_satisfied(values=wrong)
+
+
+def _cubic_board(cls, x, out):
+    """x^3 + x + 5 = out on a protoboard of either package."""
+    pb = cls()
+    o = pb.allocate('out')
+    pb.set_input_sizes(1)
+    v = pb.allocate('x')
+    sq = pb.allocate('sq')
+    cube = pb.allocate('cube')
+    pb.add_constraint(v, v, sq, 'square')
+    pb.add_constraint(sq, v, cube, 'cube')
+    pb.add_constraint(cube + v + 5, 1, o, 'sum')
+    for var, val in ((v, x), (sq, x * x), (cube, x ** 3), (o, out)):
+        pb.setval(var, val)
+    return pb
+
+
+@pytest.mark.parametrize('out', [35, 36], ids=['satisfied', 'unsatisfied'])
+@pytest.mark.parametrize('verbose', [False, True],
+                         ids=['quiet', 'verbose'])
+def test_is_satisfied_matches_reference(out, verbose, capsys):
+    """is_satisfied() and is_satisfied(True), called the reference's way,
+    give the reference's bool and print the reference's lines."""
+    want = _cubic_board(RefConstraintSystem, 3, out).is_satisfied(verbose)
+    want_out = capsys.readouterr().out
+    got = _cubic_board(ConstraintSystem, 3, out).is_satisfied(verbose)
+    got_out = capsys.readouterr().out
+    assert got is want is (out == 35)
+    assert got_out == want_out
+    assert bool(got_out) == (verbose and out != 35)
 
 
 @pytest.mark.parametrize('x,k', [(0, 0), (777, 888), (1 << 250, 3)])
