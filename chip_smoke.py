@@ -7,16 +7,22 @@ Phases (any mismatch fails the run with a non-zero exit):
 
 1. device: the card's name and power limit; build the CUDA kernels (two
    libraries, one nvcc each, started together: ``msm_kernels`` with every
-   point kernel K1-K6, ``probe_kernels`` with K7); each kernel's
+   point kernel K1-K6, ``probe_kernels`` with K7 and K7b); each kernel's
    registers, stack frame and spills from the ptxas report, and its SASS
    op mix (cuobjdump, where the toolkit has it).
-2. kernels vs twins: every MSM kernel (K1 point_add with and without index
-   tensors, K2 point_double, K3 horner; G1 and G2) against its plain
+2. t_fq: K7b fq_chain against its plain version, then one lone lane's
+   dependent Fq product timed, the unit of the latency floors of K2 and
+   K3.  Kernels vs twins: every MSM kernel (K1 point_add with and without
+   index tensors, K2 point_double, K3 horner; G1 and G2) against its plain
    PyTorch version on the same card tensors, bit for bit: at 2^14 points
    with identity, P + P and P + (-P) lanes, K1 and K2 also on raw
-   coordinates off the curve chosen for the field core's rare carries, at
-   the K2/K3 shapes of the fixture prove, and at the shapes a 2^20 MSM
-   gives each kernel, where both are also timed (CUDA events).  Then K4
+   coordinates off the curve chosen for the field core's rare carries
+   (K2 there on its one-thread path), K2 on its team path at n = 1 and
+   n = c on 1 and 16 lanes (identities, P + (-P), carry edges), K3 at the
+   red pairfold's tail (c windows of n_windows lanes, c = 1), at the K2/K3
+   shapes of the fixture prove, and at the shapes a 2^20 MSM gives each
+   kernel, where both are also timed (CUDA events; K2 and K3 with their
+   latency floors).  Then K4
    fixed_base_mul (G1, G2)
    against its plain version at 2^14 scalars (0, 1, r - 1, scalars with
    zero bytes, every single-nonzero-byte position and value) and against
@@ -33,29 +39,32 @@ Phases (any mismatch fails the run with a non-zero exit):
    of tiles; its plain version at 2^20 of its 2^24 elements), and K5 timed
    against the red MSM's pairfold on the same buckets, which it must equal
    by value.  K5's calls are also counted by window count over every run
-   of phases 5b (each MSM three times) and 6b.  K7 int_probe, every
-   op, against its plain version (bit for bit; f32_fma to a relative
-   1e-6), with the measured rates.
+   of phases 5b (each MSM three times) and 6b.  K2 at the scan MSM's
+   window step (one lane, n = c), timed.  K7 int_probe, every op, against
+   its plain version (bit for bit; f32_fma to a relative 1e-6), with the
+   measured rates.
 3. setup of the fixture: the port's generator on the committed fixture's
    constraint system with the fixture's seeded rng reproduces the
    committed pk.bin and vk.json byte for byte; K4 must launch.
 4. prove the fixture: two proofs from one ProverContext (the key stays on
-   the card); each proof's JSON must equal the reference prover's; every
-   MSM kernel must have launched.  One proof each with msm_impl 'fused'
-   and 'generic' must equal it too.
+   the card); each proof's JSON must equal the reference prover's; they
+   must launch K1 and K3 of both groups and no other kernel.  One proof
+   each with msm_impl 'fused' and 'generic' must equal it too.
 5. full size: G1 and G2 MSMs of 2^20 points (exact class-sum oracle,
-   points/s; each MSM must launch K1, K2 and K3 of its group and no
-   other) and the witness-map transform chain at m = 2^20 (spot
-   evaluations against host Horner sums).
+   points/s; each MSM must launch K1 and K3 (twice: the pairfold's tail
+   and the window combine) of its group and no other) and the witness-map
+   transform chain at m = 2^20 (spot evaluations against host Horner
+   sums).
 5b. the same 2^20 G1 and G2 MSMs through the dense all-windows driver
    (msm_impl 'fused': must take the dense route and launch K1, K5 and K3
    of its group and no other) and the scan MSM (msm_impl 'generic': K6,
-   K5, K2 and K1), against the same oracle, timed.
+   K5, K2 (once a window, n = c) and K1), against the same oracle, timed.
 6. setup -> prove -> verify at full width: the 1,045,409-constraint MiMC-e7
    chain of tools/bench_prove.py:build_circuit(20) (m = 2^20) goes
    through the port's generator on the card (both K4 instances must
-   launch), a ProverContext on the resulting key and two proofs (every MSM
-   kernel must launch); each proof must pass vk.verify, and the proof with
+   launch), a ProverContext on the resulting key and two proofs (K1 and K3
+   of both groups must launch, and nothing else); each proof must pass
+   vk.verify, and the proof with
    its input changed by one must fail it.
 6b. one proof each from ProverContexts with msm_impl 'fused' and
    'generic' on the same key and QAP: each proof's JSON must equal the
@@ -63,8 +72,8 @@ Phases (any mismatch fails the run with a non-zero exit):
 7. the new entry points: ``python -m ethsnarks_tpu_torch.bench`` at
    BENCH_MSM_SIZE=16 in each of its four modes (each must print
    correct=True), and the probe's main (``python -m
-   ethsnarks_tpu_torch.probe``), run in this process so its K7 launches
-   count.
+   ethsnarks_tpu_torch.probe``), run in this process so its K7 and K7b
+   launches count.
 
 Launch counts are reset just before and read just after each path.  The
 last lines are a JSON ``kernels`` record, the nvidia-smi line, and
@@ -85,8 +94,8 @@ import numpy as np
 import torch
 
 from ethsnarks_tpu_torch import bench, bn254, probe
-from ethsnarks_tpu_torch.cost import IMAD_PER_S, OP_IMAD, bound_ms, \
-    point_bytes
+from ethsnarks_tpu_torch.cost import FQ_MUL_IMAD, IMAD_PER_S, OP_IMAD, \
+    bound_ms, horner_steps, latency_floor_ms, point_bytes
 from ethsnarks_tpu_torch.field import CURVE_ORDER, FIELD_MODULUS, \
     SNARK_SCALAR_FIELD
 from ethsnarks_tpu_torch.gadgets import MiMCe7_gadget
@@ -192,9 +201,11 @@ def compiler_report(text):
     return out
 
 
-def kernel_symbol(k, names):
-    """The mangled name of kernel k's __global__ function among names."""
-    base = "k_" + re.sub(r"_g[12]$", "", k.name)
+def kernel_symbol(k, names, suffix=""):
+    """The mangled name of kernel k's __global__ function (``k_<name>`` and
+    ``suffix``, with its length prefix) among names."""
+    base = "k_" + re.sub(r"_g[12]$", "", k.name) + suffix
+    base = "%d%s" % (len(base), base)
     tag = {"_g1": "INS_2fqE", "_g2": "INS_3fq2E"}.get(k.name[-3:], "")
     return next((name for name in names if base in name and tag in name),
                 None)
@@ -307,12 +318,40 @@ def same(name, got, want):
 
 # ---------------------------------------------------------------- phase 2
 
-def phase_kernels(rng, fixture_cs):
+def phase_fq_chain():
+    """K7b against its plain version, word for word, on 256 lanes of 64
+    dependent products; then t_fq, one dependent Fq product on a lone
+    lane (probe.t_fq_ms), the unit of K2's and K3's latency floors."""
+    log("== phase 2: t_fq (K7b fq_chain), then K1-K3 vs plain twins")
+    k = kernels.FQ_CHAIN
+    x, y = probe.fq_inputs(256, DEV, seed=1)
+    iters = 64
+    plain_ms, want = cuda_ms(lambda: int_probe.fq_chain_plain(x, y, iters),
+                             warm=False)
+    err = same("K7b %s (256 lanes x %d)" % (k.name, iters),
+               kernels.fq_chain(x, y, iters), want)
+    t_fq, _ = probe.t_fq_ms()
+    ms = t_fq * probe.FQ_ITERS
+    b_ms, b_by = bound_ms(3 * 32, probe.FQ_ITERS * FQ_MUL_IMAD)
+    log("  %-16s one lane x %d products: %.4f ms, t_fq = %.4f us; plain "
+        "%.2f ms (256 lanes x %d); bound %.6f ms (%s)" % (
+            k.name, probe.FQ_ITERS, ms, t_fq * 1e3, plain_ms, iters, b_ms,
+            b_by))
+    rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+               bound_by=b_by, t_fq_ms=t_fq,
+               shape="one lane, %d dependent products" % probe.FQ_ITERS,
+               plain_shape="256 lanes x %d products" % iters)
+    return t_fq, {k.name: rec}
+
+
+def phase_kernels(rng, fixture_cs, t_fq):
     """Every kernel against its plain twin, bit for bit: on 2^14 random
-    lanes with completeness edge cases, at the K2/K3 shapes of the fixture
-    prove's MSMs (window widths ``fixture_cs``), and on the 2^20-MSM shapes
-    at which each kernel is timed."""
-    log("== phase 2: kernels vs plain twins (K1-K3)")
+    lanes with completeness edge cases (K2 there on its one-thread path),
+    K2 at n = 1 and n = c on 1 and 16 lanes (its team path) on curve
+    points and carry-edge coordinates, K3 at the red MSM's pairfold tail
+    and at the fixture prove's window widths ``fixture_cs``, and on the
+    2^20-MSM shapes at which each kernel is timed, with its IMAD bound and,
+    for K2 and K3, its latency floor in units of ``t_fq``."""
     rec = {}
     c = msm.best_c(1 << 20)
     nw = msm.n_windows(c)
@@ -335,8 +374,8 @@ def phase_kernels(rng, fixture_cs):
             kernels.point_add(P, Q, ia, ib, g2),
             curve.point_add_plain(P, Q, ia, ib, g2)))
         errs[k_dbl].append(same(
-            "K2 point_double_%s" % tag, kernels.point_double(P, g2),
-            curve.point_double_plain(P, g2)))
+            "K2 point_double_%s (one thread a point)" % tag,
+            kernels.point_double(P, g2), curve.point_double_plain(P, g2)))
         # raw triples off the curve that reach the rare carries of the
         # field core: the formulas are polynomials, so the two still agree
         E, F = carry_edge_points(n, g2, rng), carry_edge_points(n, g2, rng)
@@ -348,73 +387,126 @@ def phase_kernels(rng, fixture_cs):
             kernels.point_add(E, F, ia, ib, g2),
             curve.point_add_plain(E, F, ia, ib, g2)))
         errs[k_dbl].append(same(
-            "K2 point_double_%s (carry edges)" % tag,
+            "K2 point_double_%s (carry edges, one thread a point)" % tag,
             kernels.point_double(E, g2), curve.point_double_plain(E, g2)))
-        del E, F
+        # K2's team path, at the lanes the drivers give it: the identity
+        # (P[192:256]) and P + (-P) (a lane of 2^n (0, Y, 0)) among them
+        PmP = curve.point_add_plain(P[128:144], Q[128:144], g2=g2)
+        for lanes in (1, 16):
+            for pts, what in ((P[184:184 + lanes], "curve, identities"),
+                              (PmP[:lanes], "P + (-P)"),
+                              (E[:lanes], "carry edges")):
+                pts = pts.contiguous()
+                for nd in (1, c):
+                    if not kernels.double_team(lanes, g2,
+                                               kernels.card_sms(DEV)):
+                        fail("K2 %s: %d lanes not on the team path"
+                             % (tag, lanes))
+                    errs[k_dbl].append(same(
+                        "K2 point_double_%s (%d lane%s, n=%d, %s)" % (
+                            tag, lanes, "s" if lanes > 1 else "", nd, what),
+                        kernels.point_double(pts, g2, nd),
+                        curve.point_double_plain(pts, g2, nd)))
+        del E, F, PmP
         for n_win, c_test in ((2, 5), (4, 3)):
             W = P.reshape((n_win, n // n_win) + P.shape[1:]).contiguous()
             errs[k_hor].append(same(
                 "K3 horner_%s (%d windows, c=%d)" % (tag, n_win, c_test),
                 kernels.horner(W, c_test, g2),
                 curve.horner_plain(W, c_test, g2)))
-        # the fixture prove's shapes: K2 on the n_windows pairfold
-        # accumulators, K3 on one accumulator over n_windows windows
+        # the red MSM's pairfold tail at the 2^20 MSM's shape: c windows
+        # (the totals) of nw lanes, c = 1; identities among them
+        W = P[128:128 + c * nw].reshape((c, nw) + P.shape[1:]).contiguous()
+        errs[k_hor].append(same(
+            "K3 horner_%s (%d windows x %d, c=1)" % (tag, c, nw),
+            kernels.horner(W, 1, g2), curve.horner_plain(W, 1, g2)))
+        # the fixture prove's shapes: the red pairfold's K3 tail (cf
+        # windows of nw lanes), K3 on one accumulator over nw windows, and
+        # the generic combine's K2 on one lane, n = cf
         for cf in fixture_cs:
             nwf = msm.n_windows(cf)
-            errs[k_dbl].append(same(
-                "K2 point_double_%s (%d lanes)" % (tag, nwf),
-                kernels.point_double(P[:nwf].contiguous(), g2),
-                curve.point_double_plain(P[:nwf].contiguous(), g2)))
+            W = P[:cf * nwf].reshape((cf, nwf) + P.shape[1:]).contiguous()
+            errs[k_hor].append(same(
+                "K3 horner_%s (%d windows x %d, c=1)" % (tag, cf, nwf),
+                kernels.horner(W, 1, g2), curve.horner_plain(W, 1, g2)))
             W = P[:nwf].reshape((nwf, 1) + P.shape[1:]).contiguous()
             errs[k_hor].append(same(
                 "K3 horner_%s (%d windows x 1, c=%d)" % (tag, nwf, cf),
                 kernels.horner(W, cf, g2), curve.horner_plain(W, cf, g2)))
+            errs[k_dbl].append(same(
+                "K2 point_double_%s (1 lane, n=%d)" % (tag, cf),
+                kernels.point_double(P[:1].contiguous(), g2, cf),
+                curve.point_double_plain(P[:1].contiguous(), g2, cf)))
 
         # the shapes of a 2^20-point MSM, timed and compared: K1's first
         # segmented round gathers pairs from the 2^20-point table (8M lanes
-        # there, timed at TIME_LANES), K2 doubles the n_windows pairfold
-        # accumulators, K3 combines the n_windows window sums
+        # there, timed at TIME_LANES); K2 is the scan MSM's window step
+        # (one lane, n = c) and also timed at 16 lanes and n = 1; K3
+        # combines the nw window sums (one accumulator, c) and is the red
+        # pairfold's tail (c windows of nw lanes, c = 1)
         table = base[torch.from_numpy(rng.integers(0, 256, 1 << 20)).to(
             DEV)].contiguous()
         lanes = TIME_LANES
         ia = torch.from_numpy(rng.integers(0, 1 << 20, lanes)).to(DEV)
         ib = torch.from_numpy(rng.integers(0, 1 << 20, lanes)).to(DEV)
         pb = point_bytes(g2)
-        acc = table[:nw].contiguous()
         wins = table[:nw].reshape((nw, 1) + table.shape[1:]).contiguous()
-        shapes = {
-            k_add: (
+        tail = table[:c * nw].reshape((c, nw) + table.shape[1:]).contiguous()
+        dbl, add = OP_IMAD[("double", g2)], OP_IMAD[("add", g2)]
+
+        def k2_shape(n_pts, nd):
+            acc = table[:n_pts].contiguous()
+            return (lambda: kernels.point_double(acc, g2, nd),
+                    lambda: curve.point_double_plain(acc, g2, nd),
+                    2 * pb * n_pts, n_pts * nd * dbl, nd,
+                    "%d lane%s, n=%d" % (n_pts, "s" if n_pts > 1 else "",
+                                         nd))
+
+        shapes = [
+            (k_add, "", (
                 lambda: kernels.point_add(table, table, ia, ib, g2),
                 lambda: curve.point_add_plain(table, table, ia, ib, g2),
                 table.numel() * 4 + 16 * lanes + pb * lanes,
-                lanes * OP_IMAD[("add", g2)],
-                "%d lanes from a 2^20 table" % lanes),
-            k_dbl: (
-                lambda: kernels.point_double(acc, g2),
-                lambda: curve.point_double_plain(acc, g2),
-                2 * pb * nw, nw * OP_IMAD[("double", g2)],
-                "%d lanes" % nw),
-            k_hor: (
+                lanes * add, None, "%d lanes from a 2^20 table" % lanes)),
+            (k_dbl, "", k2_shape(1, c)),
+            (k_dbl, "16 lanes, n=1", k2_shape(16, 1)),
+            (k_dbl, "1 lane, n=1", k2_shape(1, 1)),
+            (k_hor, "", (
                 lambda: kernels.horner(wins, c, g2),
                 lambda: curve.horner_plain(wins, c, g2),
                 pb * (nw + 1),
-                (nw - 1) * (c * OP_IMAD[("double", g2)]
-                            + OP_IMAD[("add", g2)]),
-                "%d windows x 1, c=%d" % (nw, c)),
-        }
-        for k, (kfn, pfn, n_bytes, n_imad, shape) in shapes.items():
+                (nw - 1) * (c * dbl + add), horner_steps(nw, c),
+                "%d windows x 1, c=%d" % (nw, c))),
+            (k_hor, "pairfold tail", (
+                lambda: kernels.horner(tail, 1, g2),
+                lambda: curve.horner_plain(tail, 1, g2),
+                pb * (c + 1) * nw, nw * (c - 1) * (dbl + add),
+                horner_steps(c, 1), "%d windows x %d, c=1" % (c, nw))),
+        ]
+        for k, extra, (kfn, pfn, n_bytes, n_imad, steps, shape) in shapes:
             ms, got = cuda_ms(kfn)
             plain_ms, want = cuda_ms(pfn, reps=1)
             errs[k].append(same("%s (%s)" % (k.name, shape), got, want))
             del got, want
             b_ms, b_by = bound_ms(n_bytes, n_imad)
-            rec[k.name] = dict(max_abs_err=max(errs[k]), ms=ms,
-                               plain_ms=plain_ms, bound_ms=b_ms,
-                               bound_by=b_by, shape=shape)
+            r = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                     shape=shape)
+            floor = ""
+            if steps is not None:
+                r["latency_floor_ms"] = latency_floor_ms(steps, g2, t_fq)
+                r["steps"] = steps
+                floor = "  latency floor %8.4f ms (%d steps)" % (
+                    r["latency_floor_ms"], steps)
+            if extra:
+                rec[k.name].setdefault("other_shapes", {})[extra] = r
+            else:
+                rec[k.name] = r
             log("  %-16s %-30s kernel %10.4f ms  plain %10.2f ms  "
-                "bound %8.4f ms (%s)" % (k.name, shape, ms, plain_ms, b_ms,
-                                         b_by))
-        del table, ia, ib
+                "bound %8.6f ms (%s)%s" % (k.name, shape, ms, plain_ms, b_ms,
+                                           b_by, floor))
+        for k in (k_add, k_dbl, k_hor):
+            rec[k.name]["max_abs_err"] = max(errs[k])
+        del table, ia, ib, wins, tail
         torch.cuda.empty_cache()
     return rec
 
@@ -437,6 +529,20 @@ def launch_counts():
     return {k.name: k.launches for k in kernels.ALL}
 
 
+RED_KERNELS = [kernels.POINT_ADD[False], kernels.POINT_ADD[True],
+               kernels.HORNER[False], kernels.HORNER[True]]
+
+
+def check_red_launches(launches, what):
+    """'red' proofs launch K1 and K3 of both groups and no other kernel
+    (K3 twice an MSM: the pairfold's tail and the window combine)."""
+    ran = {k for k in kernels.ALL if launches[k.name]}
+    if ran != set(RED_KERNELS):
+        fail("%s launched %s; expected %s" % (
+            what, sorted(k.name for k in ran),
+            sorted(k.name for k in RED_KERNELS)))
+
+
 def phase_prove(ctx):
     log("== phase 4: prove the fixture")
     witness = witness_from_json(os.path.join(FIXTURE, "witness.json"))
@@ -456,9 +562,7 @@ def phase_prove(ctx):
                                     ctx.last_profile.items()})))
     launches = launch_counts()
     log("  launches over the two proofs: %s" % json.dumps(launches))
-    for k in kernels.MSM:
-        if launches[k.name] == 0:
-            fail("kernel %s was not launched by the prove" % k.name)
+    check_red_launches(launches, "the fixture prove")
     for impl in ("fused", "generic"):
         other = ProverContext(ctx.pk, None, DEV, qap=ctx.qap, msm_impl=impl)
         t0 = time.perf_counter()
@@ -515,11 +619,14 @@ def phase_msm(g2, rng, reps=3):
     if any(cnt != launches[0] for cnt in launches):
         fail("%s MSM: launch counts differ between runs: %s" % (tag,
                                                                 launches))
+    # K1 (bucket sums and pairfold), K3 twice (pairfold tail and window
+    # combine), no K2 and nothing else
     for k in kernels.ALL:
-        ran = launches[0][k.name] > 0
-        if ran != (k in kernels.MSM and k.name.endswith("_g2") == g2):
-            fail("%s MSM: kernel %s launched %d times" % (
-                tag, k.name, launches[0][k.name]))
+        count = launches[0][k.name]
+        expect = {kernels.POINT_ADD[g2]: count > 0,
+                  kernels.HORNER[g2]: count == 2}.get(k, count == 0)
+        if not expect:
+            fail("%s MSM: kernel %s launched %d times" % (tag, k.name, count))
     best = min(times[1:])
     log("  %s MSM 2^%d (c=%d): exact; times %s s; min %.4f s = %.1f "
         "points/s; launches per MSM %s" % (
@@ -569,6 +676,11 @@ def phase_msm_routes(g2, points, words, want, reps=2):
             fail("%s MSM, msm_impl=%r, launched %s; expected %s" % (
                 tag, impl, sorted(k.name for k in ran),
                 sorted(k.name for k in expect[impl])))
+        k2 = kernels.POINT_DOUBLE[g2]
+        if impl == "generic" and counts[0][k2.name] != digits.shape[0] - 1:
+            fail("%s scan MSM: K2 launched %d times for %d windows (once a "
+                 "window below the top one)" % (tag, counts[0][k2.name],
+                                                digits.shape[0]))
         best = min(times[1:])
         log("  %s MSM 2^%d msm_impl=%r (c=%d, route %s): exact; times %s s;"
             " min %.4f s = %.1f points/s; launches %s" % (
@@ -588,7 +700,7 @@ def msm_stages(points, words, c, g2):
         torch.cuda.synchronize()
         marks.append((name, time.perf_counter()))
 
-    k1, k2 = kernels.POINT_ADD[g2], kernels.POINT_DOUBLE[g2]
+    k1, k3 = kernels.POINT_ADD[g2], kernels.HORNER[g2]
     mark("start")
     digits = msm.window_digits(words, c)
     mark("digits")
@@ -600,11 +712,11 @@ def msm_stages(points, words, c, g2):
     run_keys, sums = msm.bucket_sums(points, keys, src, g2)
     mark("bucket_sums")
     rounds = k1.launches - k1_before
-    k1_before, k2_before = k1.launches, k2.launches
+    k1_before, k3_before = k1.launches, k3.launches
     wins = msm.window_sums(run_keys, sums, digits.shape[0], c, g2)
     mark("pairfold")
     pairfold = {k1.name: k1.launches - k1_before,
-                k2.name: k2.launches - k2_before}
+                k3.name: k3.launches - k3_before}
     res = msm.combine_windows(wins, c, g2)
     mark("horner")
     (curve.tensor_to_g2 if g2 else curve.tensor_to_g1)(res)
@@ -817,11 +929,13 @@ def scan_check_inputs(base, rng, g2):
     return X, torch.from_numpy(keys).to(DEV), torch.from_numpy(idx).to(DEV)
 
 
-def phase_fused_kernels(rng, resources):
+def phase_fused_kernels(rng, resources, t_fq):
     """K5 and K6 against their plain versions, bit for bit, on the edge
     cases and at the 2^20-MSM shapes (timed; K5 also at the dense driver's
-    2 windows); K5 against the pairfold; K7 against its plain version,
-    every op.  ``resources``: each kernel's registers and frame."""
+    2 windows); K5 against the pairfold; K2 at the scan MSM's window step
+    (one lane, n = c), timed with its latency floor in units of ``t_fq``;
+    K7 against its plain version, every op.  ``resources``: each kernel's
+    registers and frame."""
     log("== phase 2c: K5 bucket_fold, K6 seg_scan, K7 int_probe vs plain "
         "versions")
     rec = {}
@@ -872,17 +986,19 @@ def phase_fused_kernels(rng, resources):
                     k6.name, run.numel(), run.numel() // (sc[1] << sc[0]),
                     sc))
 
-        # the generic window step doubles one accumulator (K2, one lane)
+        # the generic window step: 2^c acc, one lane (K2, n = c)
         k2 = kernels.POINT_DOUBLE[g2]
         one = base[:1].contiguous()
-        ms, got = cuda_ms(lambda: kernels.point_double(one, g2))
-        same("K2 %s (one lane)" % k2.name, got,
-             curve.point_double_plain(one, g2))
+        ms, got = cuda_ms(lambda: kernels.point_double(one, g2, c))
+        same("K2 %s (one lane, n=%d)" % (k2.name, c), got,
+             curve.point_double_plain(one, g2, c))
         rec_k2 = dict(one_lane_ms=ms, one_lane_bound_ms=bound_ms(
-            2 * pb, OP_IMAD[("double", g2)])[0])
-        log("  %-16s %-30s kernel %10.4f ms  bound %8.6f ms" % (
-            k2.name, "1 lane (generic window step)", ms,
-            rec_k2["one_lane_bound_ms"]))
+            2 * pb, c * OP_IMAD[("double", g2)])[0],
+            one_lane_latency_floor_ms=latency_floor_ms(c, g2, t_fq))
+        log("  %-16s %-30s kernel %10.4f ms  bound %8.6f ms  latency floor "
+            "%8.4f ms" % (k2.name, "1 lane, n=%d (generic step)" % c, ms,
+                          rec_k2["one_lane_bound_ms"],
+                          rec_k2["one_lane_latency_floor_ms"]))
 
         # the fold of a 2^20-point MSM: the scan MSM's nw windows of 2^c
         # buckets, and the dense driver's groups of 2 and 1 windows
@@ -1116,10 +1232,7 @@ def phase_full_path():
                                           ctx.last_profile.items()})))
     prove_launches = launch_counts()
     log("  launches over the two proofs: %s" % json.dumps(prove_launches))
-    for k in kernels.MSM:
-        if prove_launches[k.name] == 0:
-            fail("kernel %s was not launched by the 2^%d prove"
-                 % (k.name, log_n))
+    check_red_launches(prove_launches, "the 2^%d prove" % log_n)
     if proofs[0].to_json() != proofs[1].to_json():
         fail("two nozk proofs of one witness differ")
     t0 = time.perf_counter()
@@ -1190,8 +1303,9 @@ def phase_entry_points():
     kernels.reset_counts()
     probe.main()
     launches = launch_counts()
-    if launches[kernels.INT_PROBE.name] == 0:
-        fail("the probe did not launch K7")
+    for k in kernels.PROBE:
+        if launches[k.name] == 0:
+            fail("the probe did not launch %s" % k.name)
     out["probe_launches"] = launches
     return out
 
@@ -1220,21 +1334,30 @@ def main():
             log("    " + line.strip())
     report = compiler_report(_build.build_log())
     symbols = {k.name: kernel_symbol(k, report) for k in kernels.ALL}
+    # K2's one-thread path beside its team path
+    team = {k.name: kernel_symbol(k, report, "_team")
+            for k in kernels.POINT_DOUBLE.values()}
     mix = sass_mix(_build._stem("msm_kernels") + ".so",
-                   set(symbols.values())) or {}
+                   set(symbols.values()) | set(team.values())) or {}
     resources = {}
     for k in kernels.ALL:
-        resources[k.name] = dict(report.get(symbols[k.name]) or {})
-        resources[k.name]["sass"] = mix.get(symbols[k.name])
+        sym = team.get(k.name, symbols[k.name])
+        resources[k.name] = dict(report.get(sym) or {})
+        resources[k.name]["sass"] = mix.get(sym)
+        if k.name in team:
+            resources[k.name]["one_thread_path"] = dict(
+                report.get(symbols[k.name]) or {},
+                sass=mix.get(symbols[k.name]))
         log("  %-20s %s" % (k.name, json.dumps(resources[k.name])))
 
     rng = np.random.default_rng(SEED)
     ctx = fixture_context()
     card_state("before phase 2")
-    rec = phase_kernels(rng, sorted(set(ctx.c.values())))
+    t_fq, rec = phase_fq_chain()
+    rec.update(phase_kernels(rng, sorted(set(ctx.c.values())), t_fq))
     card_state("after phase 2")
     rec.update(phase_k4(rng))
-    for name, r in phase_fused_kernels(rng, resources).items():
+    for name, r in phase_fused_kernels(rng, resources, t_fq).items():
         rec.setdefault(name, {}).update(r)
     card_state("after phase 2c")
     fixture_setup = phase_fixture_setup()
@@ -1265,9 +1388,9 @@ def main():
     card_state("at the end")
     log("  full-path results: %s" % json.dumps(
         dict(path, fixture_setup=fixture_setup), default=str))
-    # launches by path: the 2^20 setup (K4), its two 'red' proofs (K1-K3),
-    # its 'fused' and 'generic' proofs and the 5b MSMs (K1-K3, K5, K6),
-    # and the probe (K7); "launches" is their sum
+    # launches by path: the 2^20 setup (K4), its two 'red' proofs (K1,
+    # K3), its 'fused' and 'generic' proofs and the 5b MSMs (K1-K3, K5,
+    # K6), and the probe (K7, K7b); "launches" is their sum
     by_path = {"setup_2^20": path["setup_launches"],
                "prove_2^20_red_x2": path["prove_launches"],
                "probe": entry["probe_launches"]}
@@ -1293,11 +1416,10 @@ def main():
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"], "library_ms": None,
                     "shape": r["shape"]})
-        out[-1].update({key: r[key] for key in ("one_lane_ms", "pairfold_ms",
-                                                "plain_shape", "rates",
-                                                "all_levels_ms", "schedule",
-                                                "by_windows")
-                        if key in r})
+        out[-1].update({key: r[key] for key in (
+            "one_lane_ms", "one_lane_latency_floor_ms", "latency_floor_ms",
+            "steps", "t_fq_ms", "other_shapes", "pairfold_ms", "plain_shape",
+            "rates", "all_levels_ms", "schedule", "by_windows") if key in r})
         if k in kernels.BUCKET_FOLD.values():
             tag = k.name[-2:] + " "
             out[-1]["calls_by_windows"] = {

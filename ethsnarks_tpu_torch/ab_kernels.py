@@ -1,6 +1,6 @@
-"""Times this checkout's K1 ``point_add``, K5 ``bucket_fold`` and K6
-``seg_scan`` against the same kernels of another checkout, in turns, on
-one CUDA card.
+"""Times this checkout's K1 ``point_add``, K2 ``point_double``, K3
+``horner``, K5 ``bucket_fold`` and K6 ``seg_scan`` against the same
+kernels of another checkout, in turns, on one CUDA card.
 
     python -m ethsnarks_tpu_torch.ab_kernels OTHER_ROOT
 
@@ -11,14 +11,21 @@ is imported as ``other_port`` and builds its own kernels into
 kernel runs through its own checkout's wrapper, launch arguments and
 default schedule. The shapes are those of the kernel table in
 ``PERF.md``, made as ``chip_smoke.py`` makes them: K1 on 2^21 lanes
-gathered from 2^20 points; K5 on 16 windows and on 2 windows of 2^16
+gathered from 2^20 points; K2 at the scan MSM's window step (one lane,
+2^16 P: one launch here, where the other checkout's K2 takes no n, 16
+launches of one doubling as its scan MSM made them) and on 16 lanes at
+n = 1; K3 on one accumulator of 16 windows at c = 16 (the window
+combine) and on 16 windows of 16 lanes at c = 1 (the red pairfold's
+tail); K5 on 16 windows and on 2 windows of 2^16
 buckets (this checkout's K5 also in the schedules of the other block
 counts an SM up to its occupancy); K6 over the sorted nonzero window
 digits of 2^20 uniform scalars at c = 16, one launch and the whole
 segmented scan (every level of tiles and the K1 carries). After a warm-up
 of the card, each time is the mean of REPS launches (CUDA events), taken
 in the order other, this, this, other; this checkout's K5 variants after
-that, once each. K1's outputs must agree word for word; K5's (every
+that, once each. K2 and K3 are given their latency floors
+(:func:`.cost.latency_floor_ms`) from t_fq, measured once on this card by
+K7b. K1's, K2's and K3's outputs must agree word for word; K5's (every
 window) and the scans' (4,096 sampled elements) by value, since their
 association orders may differ. Prints one JSON line, then the card's name
 and power limit.
@@ -27,6 +34,7 @@ and power limit.
 import concurrent.futures
 import importlib
 import importlib.util
+import inspect
 import json
 import os
 import subprocess
@@ -36,9 +44,11 @@ import time
 import numpy as np
 import torch
 
+from . import probe
 from .bench import scalars_np
 from .bn254 import G1_GEN, G2_GEN, multiply
-from .cost import OP_IMAD, bound_ms, point_bytes
+from .cost import OP_IMAD, bound_ms, horner_steps, latency_floor_ms, \
+    point_bytes
 from .ops import _build, curve, fold, kernels, msm, msm_scan
 from .ops.fp import ints_to_words_np
 
@@ -110,6 +120,52 @@ def same_values(rows, g2):
     return check
 
 
+def other_double(o_kernels, g2):
+    """The other checkout's 2^n P: one K2 launch where its K2 takes n,
+    else n launches of one doubling."""
+    if "n" in inspect.signature(o_kernels.point_double).parameters:
+        return lambda P, n: o_kernels.point_double(P, g2, n)
+
+    def loop(P, n):
+        for _ in range(n):
+            P = o_kernels.point_double(P, g2)
+        return P
+    return loop
+
+
+def chain_kernels(rec, o_kernels, table, c, nw, g2, t_fq):
+    """K2 and K3 at the MSM drivers' shapes, in turns, word for word, with
+    their IMAD bounds and latency floors."""
+    tag = "g2" if g2 else "g1"
+    pb = point_bytes(g2)
+    dbl, add = OP_IMAD[("double", g2)], OP_IMAD[("add", g2)]
+    o_dbl = other_double(o_kernels, g2)
+    for lanes, n in ((1, c), (16, 1)):
+        acc = table[:lanes].contiguous()
+        name = "point_double_%s %d lane%s n=%d" % (
+            tag, lanes, "s" if lanes > 1 else "", n)
+        ms = in_turns(name, {
+            "other": lambda: o_dbl(acc, n),
+            "this": lambda: kernels.point_double(acc, g2, n)}, same_words)
+        b = bound_ms(2 * pb * lanes, lanes * n * dbl)
+        rec[name] = dict(ms, bound_ms=b[0], bound_by=b[1],
+                         latency_floor_ms=latency_floor_ms(n, g2, t_fq))
+    wins = table[:nw].reshape((nw, 1) + table.shape[1:]).contiguous()
+    tail = table[:c * nw].reshape((c, nw) + table.shape[1:]).contiguous()
+    for W, cw, name, n_imad in (
+            (wins, c, "horner_%s %dx1 c=%d" % (tag, nw, c),
+             (nw - 1) * (c * dbl + add)),
+            (tail, 1, "horner_%s %dx%d c=1" % (tag, c, nw),
+             nw * (c - 1) * (dbl + add))):
+        ms = in_turns(name, {
+            "other": lambda: o_kernels.horner(W, cw, g2),
+            "this": lambda: kernels.horner(W, cw, g2)}, same_words)
+        b = bound_ms(pb * (W.shape[0] + 1) * W.shape[1], n_imad)
+        rec[name] = dict(ms, bound_ms=b[0], bound_by=b[1],
+                         latency_floor_ms=latency_floor_ms(
+                             horner_steps(W.shape[0], cw), g2, t_fq))
+
+
 def fold_variants(dense, nw, c, g2, dev):
     """This checkout's K5 in the schedules of 1 .. occupancy blocks an SM,
     but for its default's."""
@@ -147,6 +203,8 @@ def main(argv):
         for _ in range(100):
             warm.mul_(1.0)
         torch.cuda.synchronize()
+    t_fq = probe.t_fq_ms()[0]
+    rec["t_fq_us"] = t_fq * 1e3
     for g2 in (False, True):
         tag = "g2" if g2 else "g1"
         gen = G2_GEN if g2 else G1_GEN
@@ -164,6 +222,7 @@ def main(argv):
         b1 = bound_ms(table.numel() * 4 + 16 * K1_LANES + pb * K1_LANES,
                       K1_LANES * OP_IMAD[("add", g2)])
         rec["point_add_" + tag] = dict(ms, bound_ms=b1[0], bound_by=b1[1])
+        chain_kernels(rec, o_kernels, table, c, nw, g2, t_fq)
         for n_win in K5_WINDOWS:
             dense = table[:n_win << c].contiguous()
             name = "bucket_fold_%s_%dx2^%d" % (tag, n_win, c)

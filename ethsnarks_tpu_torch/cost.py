@@ -1,5 +1,6 @@
 """Card limits and operation counts behind the port's bounds: the least
-time an NVIDIA H100 SXM could take for a kernel's work.
+time an NVIDIA H100 SXM could take for a kernel's work, and the latency
+floor of a serial chain of point steps.
 
 Card limits (NVIDIA H100 SXM data sheet): 3.35 TB/s of HBM; 32-bit integer
 multiply-adds at 64 lanes per SM per clock (half the 128 float32 lanes
@@ -47,3 +48,24 @@ def msm_imad(n, n_windows, c, g2=False):
     adds = n_windows * (n + 2 * (1 << c)) + n_windows - 1
     doubles = c * (n_windows - 1)
     return adds * OP_IMAD[("add", g2)] + doubles * OP_IMAD[("double", g2)]
+
+
+# Levels of dependent Fq products in one team step (csrc/curve.cuh
+# team_double / team_add): G1 2 (4 then 4 products a double, 6 then 6 an
+# add); G2 3 (the products by 3b are a level of their own).
+STEP_LEVELS = {False: 2, True: 3}
+
+
+def horner_steps(n_win, c):
+    """Point steps of one accumulator's window combine (K3): c doubles and
+    one add for each window below the top one."""
+    return (n_win - 1) * (c + 1)
+
+
+def latency_floor_ms(steps, g2, t_fq_ms):
+    """The least time a serial chain of ``steps`` point steps can take on
+    the team step: its levels of products one after another, each one
+    dependent Fq product's latency ``t_fq_ms`` (measured on the card by
+    K7b ``fq_chain``).  The IMAD bound (:func:`bound_ms`) does not apply
+    to a chain, whose products cannot all run at once."""
+    return steps * STEP_LEVELS[g2] * t_fq_ms

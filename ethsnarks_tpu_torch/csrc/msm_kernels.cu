@@ -6,9 +6,19 @@
 //   K1 point_add    <- ethsnarks_tpu/ops/msm_red.py _g1_add_kernel_red (:171)
 //                      and _g2_add_kernel_red (:193)
 //   K2 point_double <- _g1_double_kernel_red (:249), _g2_double_kernel_red (:268)
+//                      (2^n P in one launch)
 //   K3 horner       <- _k_horner_all_red (:412), _k_horner_all_red_g2 (:515),
 //                      _k_double_n_add_red (:454), _k_double_n_add_red_g2 (:481)
 //                      (2^n P + Q is horner over the two windows [Q, P], c = n)
+//
+// K2 and K3 are serial chains on the MSM's paths (K3 combines the windows
+// of one accumulator: 255 point steps at 2^20 points; K2 doubles one
+// accumulator c times a window): no batch to fill the card, so what
+// bounds them is the latency of a step, not the IMADs.  Each runs on the
+// team step of curve.cuh (a quarter warp on G1, a warp on G2, one Fq
+// product a lane, so a step costs the latency of its 2 (G1) or 3 (G2)
+// levels of products).  K2 keeps one thread a point for a batch that
+// fills the card (kernels.double_team chooses).
 //
 // What bounds them on this card: integer multiplies.  A G1 add is 12 Fq
 // products; each is 128 wide (32x32 -> 64, two IMADs) and 8 low (one IMAD)
@@ -78,28 +88,76 @@ k_point_add(const uint32_t* __restrict__ P, const uint32_t* __restrict__ Q,
     store_point(out, i, p);
 }
 
+// K2, one thread a point: out[i] = 2^n_dbl P[i] (the path of a large
+// batch, where the card has a warp a scheduler or more without teams).
 template <class F>
 __global__ void __launch_bounds__(kThreads)
-k_point_double(const uint32_t* __restrict__ P, uint32_t* __restrict__ out, int n) {
+k_point_double(const uint32_t* __restrict__ P, uint32_t* __restrict__ out,
+               int n, int n_dbl) {
     int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
-    store_point(out, i, rcb_double(load_point<point<F>>(P, i)));
+    point<F> p = load_point<point<F>>(P, i);
+    for (int k = 0; k < n_dbl; k++) p = rcb_double(p);
+    store_point(out, i, p);
 }
 
-// W: (n_win, batch) points, window 0 least significant.  One thread per
-// accumulator: acc = W[n_win-1]; for w = n_win-2 .. 0: acc = 2^c acc + W[w].
+// The team kernels: blocks of one warp, 32 / kLanes teams a block (G1 4,
+// G2 1), one team a point.  A spare team of the last block repeats the
+// last point and stores nothing, so every __syncwarp has the whole warp.
+constexpr int kTeamThreads = 32;
+
+template <class F> struct TeamGrid {
+    static constexpr int kTeams = kTeamThreads / TeamCfg<F>::kLanes;
+};
+
+// K2 on teams: out[i] = 2^n_dbl P[i] (the path of the 1-16 lanes the MSM
+// drivers give K2).
 template <class F>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kTeamThreads)
+k_point_double_team(const uint32_t* __restrict__ P, uint32_t* __restrict__ out,
+                    int n, int n_dbl) {
+    constexpr int T = TeamCfg<F>::kLanes, NS = TeamSlots<F>::kFq;
+    __shared__ fq smem[TeamGrid<F>::kTeams * NS];
+    const int t = threadIdx.x / T, j = threadIdx.x % T;
+    const int i = blockIdx.x * TeamGrid<F>::kTeams + t;
+    fq* s = smem + t * NS;
+    team_init<F>(s, j);
+    if (j < TeamSlots<F>::kVec)
+        team_put<F>(s, slot::X, j, team_fetch<F>(P, min(i, n - 1), j));
+    __syncwarp();
+    for (int k = 0; k < n_dbl; k++) team_double<F>(s, j);
+    if (i < n) team_store<F>(out, i, s, j);
+}
+
+// K3: W: (n_win, batch) points, window 0 least significant.  One team per
+// accumulator: acc = W[n_win-1]; for w = n_win-2 .. 0: acc = 2^c acc +
+// W[w].  Each window's point is loaded into registers before its c
+// doublings and put into the team's slots for the add.
+template <class F>
+__global__ void __launch_bounds__(kTeamThreads)
 k_horner(const uint32_t* __restrict__ W, uint32_t* __restrict__ out,
          int n_win, int batch, int c) {
-    int j = blockIdx.x * blockDim.x + threadIdx.x;
-    if (j >= batch) return;
-    point<F> acc = load_point<point<F>>(W, (long long)(n_win - 1) * batch + j);
+    constexpr int T = TeamCfg<F>::kLanes, NS = TeamSlots<F>::kFq;
+    constexpr int V = TeamSlots<F>::kVec;
+    __shared__ fq smem[TeamGrid<F>::kTeams * NS];
+    const int t = threadIdx.x / T, j = threadIdx.x % T;
+    const int acc = blockIdx.x * TeamGrid<F>::kTeams + t;
+    const long long a = min(acc, batch - 1);
+    fq* s = smem + t * NS;
+    team_init<F>(s, j);
+    if (j < V)
+        team_put<F>(s, slot::X, j,
+                    team_fetch<F>(W, (long long)(n_win - 1) * batch + a, j));
+    __syncwarp();
     for (int w = n_win - 2; w >= 0; w--) {
-        for (int k = 0; k < c; k++) acc = rcb_double(acc);
-        acc = rcb_add(acc, load_point<point<F>>(W, (long long)w * batch + j));
+        uint4 q = make_uint4(0, 0, 0, 0);
+        if (j < V) q = team_fetch<F>(W, (long long)w * batch + a, j);
+        for (int k = 0; k < c; k++) team_double<F>(s, j);
+        if (j < V) team_put<F>(s, slot::QX, j, q);
+        __syncwarp();
+        team_add<F>(s, j);
     }
-    store_point(out, j, acc);
+    if (acc < batch) team_store<F>(out, acc, s, j);
 }
 
 inline int blocks(int n, int threads = kThreads) {
@@ -124,18 +182,25 @@ using esn::fq2;
         return (int)cudaGetLastError();                                         \
     }                                                                           \
     extern "C" int esn_point_double_##SUFFIX(const void* P, void* out, int n,   \
+                                             int n_dbl, int team,               \
                                              void* stream) {                    \
-        if (n > 0)                                                              \
+        if (n > 0 && team)                                                      \
+            esn::k_point_double_team<F>                                         \
+                <<<esn::blocks(n, esn::TeamGrid<F>::kTeams),                   \
+                   esn::kTeamThreads, 0,                                        \
+                   (cudaStream_t)stream>>>((const uint32_t*)P, (uint32_t*)out,  \
+                                           n, n_dbl);                           \
+        else if (n > 0)                                                         \
             esn::k_point_double<F><<<esn::blocks(n), esn::kThreads, 0,          \
                                      (cudaStream_t)stream>>>(                   \
-                (const uint32_t*)P, (uint32_t*)out, n);                         \
+                (const uint32_t*)P, (uint32_t*)out, n, n_dbl);                  \
         return (int)cudaGetLastError();                                         \
     }                                                                           \
     extern "C" int esn_horner_##SUFFIX(const void* W, void* out, int n_win,     \
                                        int batch, int c, void* stream) {        \
         if (batch > 0)                                                          \
-            esn::k_horner<F><<<esn::blocks(batch), esn::kThreads, 0,            \
-                               (cudaStream_t)stream>>>(                         \
+            esn::k_horner<F><<<esn::blocks(batch, esn::TeamGrid<F>::kTeams),    \
+                               esn::kTeamThreads, 0, (cudaStream_t)stream>>>(   \
                 (const uint32_t*)W, (uint32_t*)out, n_win, batch, c);           \
         return (int)cudaGetLastError();                                         \
     }

@@ -28,11 +28,19 @@
 // 8 bytes read and 4 written per element are negligible beside
 // iters * 16 operations.
 //
-// The launcher returns cudaGetLastError() after the launch (an unknown op
+// K7b fq_chain: the latency of one dependent Fq product on a lone lane,
+// t_fq, the unit of the latency floor of the serial chains K2 and K3
+// (ethsnarks_tpu_torch/cost.py): every thread runs x <- x y (field.cuh's
+// product) iters times on its own element and writes x canonical.  Timed
+// on one thread, it is iters products, each waiting on the one before.
+//
+// The launchers return cudaGetLastError() after the launch (an unknown op
 // is cudaErrorInvalidValue); the Python wrapper raises on a non-zero value.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "field.cuh"
 
 namespace esn {
 
@@ -95,7 +103,36 @@ int launch_probe(const void* x, const void* y, void* out, int n, int iters,
     return (int)cudaGetLastError();
 }
 
+__global__ void __launch_bounds__(kProbeThreads)
+k_fq_chain(const uint32_t* __restrict__ x, const uint32_t* __restrict__ y,
+           uint32_t* __restrict__ out, int n, int iters) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    fq a, b;
+    const uint4* xs = reinterpret_cast<const uint4*>(x) + 2 * (long long)i;
+    const uint4* ys = reinterpret_cast<const uint4*>(y) + 2 * (long long)i;
+    reinterpret_cast<uint4*>(&a)[0] = xs[0];
+    reinterpret_cast<uint4*>(&a)[1] = xs[1];
+    reinterpret_cast<uint4*>(&b)[0] = ys[0];
+    reinterpret_cast<uint4*>(&b)[1] = ys[1];
+#pragma unroll 1
+    for (int it = 0; it < iters; it++) a = fq_mul(a, b);
+    a = fq_canon(a);
+    uint4* dst = reinterpret_cast<uint4*>(out) + 2 * (long long)i;
+    dst[0] = reinterpret_cast<const uint4*>(&a)[0];
+    dst[1] = reinterpret_cast<const uint4*>(&a)[1];
+}
+
 }  // namespace esn
+
+extern "C" int esn_fq_chain(const void* x, const void* y, void* out, int n,
+                            int iters, void* stream) {
+    if (n > 0)
+        esn::k_fq_chain<<<(n + esn::kProbeThreads - 1) / esn::kProbeThreads,
+                          esn::kProbeThreads, 0, (cudaStream_t)stream>>>(
+            (const uint32_t*)x, (const uint32_t*)y, (uint32_t*)out, n, iters);
+    return (int)cudaGetLastError();
+}
 
 extern "C" int esn_int_probe(int op, const void* x, const void* y, void* out, int n,
                              int iters, void* stream) {

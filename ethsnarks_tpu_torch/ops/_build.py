@@ -7,7 +7,7 @@ missing:
   ``csrc/setup_kernels.cu`` and ``csrc/msm_fused_kernels.cu``: every point
   kernel (K1-K6);
 - ``probe_kernels`` from ``csrc/probe_kernels.cu``: the throughput probe
-  (K7).
+  (K7) and the Fq product's latency chain (K7b).
 
 Each source is compiled into a shared library with a plain C interface
 under ``build/ethsnarks_tpu_torch/`` at the repo root (git-ignored), named
@@ -36,8 +36,8 @@ LIBRARIES = {
     "msm_kernels": {
         "esn_point_add_g1": [_VOID, _VOID, _VOID, _VOID, _VOID, _INT, _VOID],
         "esn_point_add_g2": [_VOID, _VOID, _VOID, _VOID, _VOID, _INT, _VOID],
-        "esn_point_double_g1": [_VOID, _VOID, _INT, _VOID],
-        "esn_point_double_g2": [_VOID, _VOID, _INT, _VOID],
+        "esn_point_double_g1": [_VOID, _VOID, _INT, _INT, _INT, _VOID],
+        "esn_point_double_g2": [_VOID, _VOID, _INT, _INT, _INT, _VOID],
         "esn_horner_g1": [_VOID, _VOID, _INT, _INT, _INT, _VOID],
         "esn_horner_g2": [_VOID, _VOID, _INT, _INT, _INT, _VOID],
         "esn_fixed_base_mul_g1": [_VOID, _VOID, _VOID, _INT, _INT, _INT,
@@ -57,6 +57,7 @@ LIBRARIES = {
     },
     "probe_kernels": {
         "esn_int_probe": [_INT, _VOID, _VOID, _VOID, _INT, _INT, _VOID],
+        "esn_fq_chain": [_VOID, _VOID, _VOID, _INT, _INT, _VOID],
     },
 }
 

@@ -116,9 +116,12 @@ def add_points(p, q, g2):
     return pack(rcb_add(_field(g2), unpack(p), unpack(q)))
 
 
-def point_double_plain(P, g2=False):
-    """Plain complete doubling of a point tensor."""
-    return pack(rcb_double(_field(g2), unpack(P)))
+def point_double_plain(P, g2=False, n=1):
+    """Plain complete doubling of a point tensor, n times: 2^n P."""
+    f, p = _field(g2), unpack(P)
+    for _ in range(n):
+        p = rcb_double(f, p)
+    return pack(p)
 
 
 # ---- the kernels' plain versions (same signatures as ops/kernels.py) ----

@@ -1,5 +1,6 @@
 """The operations of the throughput probe K7 ``int_probe``
-(``csrc/probe_kernels.cu``) and its plain PyTorch version.
+(``csrc/probe_kernels.cu``) and its plain PyTorch version, and the plain
+version of the latency chain K7b ``fq_chain`` beside it.
 
 Counterpart: ``tools/probe_vpu.py`` ``OPS`` (:44-52), the seven ops its
 Pallas kernel ``mk_kernel`` (:25) chains, and ``u32_mul_wide``, the
@@ -17,6 +18,8 @@ place: it is held to a relative tolerance (``F32_RTOL``), not bit for bit.
 """
 
 import torch
+
+from .fp import Fq, h16_to_words, words_to_h16
 
 # name -> op id of esn_int_probe
 OPS = {'u32_mul': 0, 'u32_add': 1, 'u32_mul_add': 2, 'u32_shr13_and': 3,
@@ -76,3 +79,23 @@ def int_probe_plain(op, x, y, iters):
     for _ in range(steps):
         a = step(a, b)
     return torch.where(a > 0x7FFFFFFF, a - (1 << 32), a).to(torch.int32)
+
+
+def check_fq_inputs(x, y):
+    for t in (x, y):
+        if t.dtype != torch.int32 or t.dim() != 2 or t.shape[1] != 8 or \
+                not t.is_contiguous():
+            raise ValueError("fq_chain: expected contiguous int32 (n, 8) "
+                             "words, got %s %s" % (t.dtype, tuple(t.shape)))
+    if x.shape != y.shape or x.device != y.device:
+        raise ValueError("fq_chain: x and y differ in shape or device")
+
+
+def fq_chain_plain(x, y, iters):
+    """The plain version of K7b ``fq_chain``: x, y int32 (n, 8) Montgomery
+    words of canonical Fq values -> x * y^iters (Montgomery products, each
+    on the one before), canonical words."""
+    a, b = words_to_h16(x), words_to_h16(y)
+    for _ in range(iters):
+        a = Fq.mul(a, b)
+    return h16_to_words(a)

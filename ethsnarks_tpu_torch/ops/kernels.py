@@ -1,6 +1,6 @@
 """One wrapper per CUDA kernel: K1-K3 of ``csrc/msm_kernels.cu``, K4 of
-``csrc/setup_kernels.cu``, K5-K6 of ``csrc/msm_fused_kernels.cu`` and K7 of
-``csrc/probe_kernels.cu``.
+``csrc/setup_kernels.cu``, K5-K6 of ``csrc/msm_fused_kernels.cu`` and K7,
+K7b of ``csrc/probe_kernels.cu``.
 
 A wrapper checks dtype, shape and contiguity, then dispatches on where the
 tensors lie: on the CPU it runs the kernel's plain PyTorch twin
@@ -99,12 +99,21 @@ SEG_SCAN = {
 }
 INT_PROBE = Kernel("int_probe", "esn_int_probe", "tools/probe_vpu.py:25",
                    PROBE_SOURCE)
+# K7b: the probe's latency chain of the Fq product (the reference's probe
+# measures throughput only; this is the unit of K2's and K3's floor)
+FQ_CHAIN = Kernel("fq_chain", "esn_fq_chain", "tools/probe_vpu.py:25",
+                  PROBE_SOURCE)
 MSM = [POINT_ADD[False], POINT_ADD[True], POINT_DOUBLE[False],
        POINT_DOUBLE[True], HORNER[False], HORNER[True]]
 SETUP = [FIXED_BASE_MUL[False], FIXED_BASE_MUL[True]]
 FUSED = [BUCKET_FOLD[False], BUCKET_FOLD[True], SEG_SCAN[False],
          SEG_SCAN[True]]
-ALL = MSM + SETUP + FUSED + [INT_PROBE]
+PROBE = [INT_PROBE, FQ_CHAIN]
+ALL = MSM + SETUP + FUSED + PROBE
+
+# K2 and K3 run a team of lanes a point (csrc/curve.cuh): G1 a quarter
+# warp, G2 a warp
+TEAM_LANES = {False: 8, True: 32}
 
 
 def reset_counts():
@@ -176,24 +185,49 @@ def point_add(P, Q, ia=None, ib=None, g2=False):
     return out
 
 
-def point_double(P, g2=False):
-    """K2: elementwise complete projective doubling."""
+def double_team(batch, g2, sms):
+    """Whether K2 runs its team path (a team of ``TEAM_LANES[g2]`` lanes a
+    point) for ``batch`` points on a card of ``sms`` SMs: while the teams
+    fit in one warp a scheduler (4 an SM), a point's chain of doublings is
+    the time and a team cuts it to 2 (G1) or 3 (G2) product latencies a
+    step; past that the card is busy and one thread a point issues fewer
+    instructions a doubling."""
+    return batch * TEAM_LANES[g2] <= sms * 4 * 32
+
+
+_sms = {}
+
+
+def card_sms(device):
+    """The SM count of a CUDA device, read once."""
+    key = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if key not in _sms:
+        _sms[key] = torch.cuda.get_device_properties(key).multi_processor_count
+    return _sms[key]
+
+
+def point_double(P, g2=False, n=1):
+    """K2: out[i] = 2^n P[i] (n complete projective doublings), one
+    launch; on the team path or one thread a point, by
+    :func:`double_team`."""
     _check_points(P, g2, "point_double")
-    n = P.shape[0]
-    if n >= 1 << 31:
-        raise ValueError("point_double: %d lanes exceed int32" % n)
+    b = P.shape[0]
+    if b >= 1 << 31 or not 1 <= n < 1 << 31:
+        raise ValueError("point_double: %d lanes, n=%d" % (b, n))
     if not _on_card(P):
-        return curve.point_double_plain(P, g2)
+        return curve.point_double_plain(P, g2, n)
     out = torch.empty_like(P)
-    POINT_DOUBLE[g2].launch(P.data_ptr(), out.data_ptr(), n,
-                            _stream(P.device))
+    team = double_team(b, g2, card_sms(P.device))
+    POINT_DOUBLE[g2].launch(P.data_ptr(), out.data_ptr(), b, int(n),
+                            int(team), _stream(P.device))
     return out
 
 
 def horner(W, c, g2=False):
     """K3: W (n_win, batch, *point), window 0 least significant ->
-    (batch, *point) sum_w 2^(c*w) W[w], evaluated MSB first.  With two
-    windows [Q, P] it is 2^c * P + Q."""
+    (batch, *point) sum_w 2^(c*w) W[w], evaluated MSB first, a team of
+    lanes an accumulator.  With two windows [Q, P] it is 2^c * P + Q."""
     if W.dim() < 2 or not W.is_contiguous():
         raise ValueError("horner: expected contiguous (n_win, batch, *point)"
                          " windows")
@@ -257,7 +291,7 @@ def fold_occupancy(device, g2):
            else torch.cuda.current_device(), g2)
     if key not in _occupancy:
         with torch.cuda.device(key[0]):
-            sms = torch.cuda.get_device_properties(key[0]).multi_processor_count
+            sms = card_sms(device)
             blocks = function(BLOCKS_PER_SM[g2])(fold.FOLD_THREADS[g2])
         if blocks < 1:
             raise RuntimeError("bucket_fold: occupancy query failed (%d)"
@@ -343,4 +377,19 @@ def int_probe(op, x, y, iters):
     out = torch.empty_like(x)
     INT_PROBE.launch(probe_ops.OPS[op], x.data_ptr(), y.data_ptr(),
                      out.data_ptr(), x.shape[0], int(iters), _stream(x.device))
+    return out
+
+
+def fq_chain(x, y, iters):
+    """K7b: x * y^iters in Montgomery form (each product waits on the one
+    before), every element on its own thread; x, y int32 (n, 8) words of
+    canonical Fq values."""
+    probe_ops.check_fq_inputs(x, y)
+    if not 0 <= iters < 1 << 31:
+        raise ValueError("fq_chain: iters=%d" % iters)
+    if not _on_card(x):
+        return probe_ops.fq_chain_plain(x, y, iters)
+    out = torch.empty_like(x)
+    FQ_CHAIN.launch(x.data_ptr(), y.data_ptr(), out.data_ptr(), x.shape[0],
+                    int(iters), _stream(x.device))
     return out

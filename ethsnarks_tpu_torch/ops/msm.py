@@ -13,8 +13,8 @@ Sort, then segmented reduction:
    heavy-group filter or spill is needed;
 3. the bucket sums are scattered into a dense (n_windows, 2^c) table and
    the weighted sum sum_b b * S_b of every window is built by the pairfold
-   recursion of ``msm_red.py:337-376`` on K1 and K2 ``point_double`` at
-   shrinking widths;
+   recursion of ``msm_red.py:337-376``: K1 at shrinking widths, then one
+   K3 ``horner`` launch (c = 1) over its c totals, every window at once;
 4. K3 ``horner`` combines the windows, most significant first.
 
 The pipeline is device-agnostic: on CPU tensors the kernel wrappers run
@@ -121,10 +121,10 @@ def pairfold(dense, nw, c, g2):
         totals.append(t[tbase.reshape(-1)] if t is cur else t)
         cur = kernels.point_add(cur, cur, lo, hi, g2)
         width = half
-    acc = totals[0]
-    for t in totals[1:]:
-        acc = kernels.point_add(kernels.point_double(acc, g2), t, g2=g2)
-    return acc
+    # acc = 2 acc + t over the totals, totals[0] the most significant (the
+    # reference's _padded_dbl / _padded_add loop): horner with c = 1 over
+    # the totals as windows, least significant first, one lane a window
+    return kernels.horner(torch.stack(totals[::-1]), 1, g2)
 
 
 def sorted_keys(digits):

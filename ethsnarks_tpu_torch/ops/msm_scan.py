@@ -14,9 +14,9 @@ with the reference's host helpers, :37-55 and :192-269).
    its bucket's sum, scattered into a dense (windows, 2^c) table;
 3. K5 ``bucket_fold`` gives every window's sum_b b * S_b;
 4. the windows are combined, most significant first, in one of two ways:
-   ``'double_add'``, the generic MSM's step (c K2 doubles, then one K1 add,
-   ``msm.py:138-140``), or ``'horner'``, one K3 launch over the windows (the
-   fused scan driver's ``_k_horner`` steps).
+   ``'double_add'``, the generic MSM's step (2^c acc by one K2 launch,
+   then one K1 add, ``msm.py:138-140``), or ``'horner'``, one K3 launch
+   over the windows (the fused scan driver's ``_k_horner`` steps).
 
 The pipeline is device-agnostic: on CPU tensors the kernel wrappers run
 their plain twins.
@@ -111,9 +111,8 @@ def combine_windows(wins, c, g2, combine):
         return msm.combine_windows(wins, c, g2)
     acc = wins[-1:]
     for w in range(wins.shape[0] - 2, -1, -1):
-        for _ in range(c):
-            acc = kernels.point_double(acc, g2)
-        acc = kernels.point_add(acc, wins[w:w + 1].contiguous(), g2=g2)
+        acc = kernels.point_add(kernels.point_double(acc, g2, c),
+                                wins[w:w + 1].contiguous(), g2=g2)
     return acc
 
 

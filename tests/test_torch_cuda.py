@@ -101,6 +101,38 @@ def test_point_kernels_carry_edges(card, g2):
 
 
 @pytest.mark.parametrize('g2', [False, True], ids=['g1', 'g2'])
+def test_team_kernels_match_plain(card, g2):
+    """K2 on its team path (1 and 16 lanes, n = 1 and 16) and K3 (one
+    accumulator of 16 windows at c = 16, the red pairfold's tail of 16
+    windows of 16 lanes at c = 1, a batch with a spare team) word for word
+    against their plain versions, on curve points with identities and on
+    carry-edge coordinates."""
+    P = _points(256, g2, card, 14)
+    E = _carry_edge_points(64, g2, card, 15)
+    assert kernels.double_team(16, g2, kernels.card_sms(card))
+    for pts in (P, E):
+        for lanes in (1, 16):
+            for n in (1, 16):
+                A = pts[:lanes].contiguous()
+                got = kernels.point_double(A, g2, n)
+                torch.cuda.synchronize()
+                assert torch.equal(got, curve.point_double_plain(A, g2, n))
+        for n_win, batch, c in ((16, 1, 16), (16, 3, 1), (3, 5, 2)):
+            W = pts[:n_win * batch].reshape(
+                (n_win, batch) + pts.shape[1:]).contiguous()
+            got = kernels.horner(W, c, g2)
+            torch.cuda.synchronize()
+            assert torch.equal(got, curve.horner_plain(W, c, g2))
+
+
+def test_fq_chain_matches_plain(card):
+    x, y = probe.fq_inputs(300, card, seed=2)
+    got = kernels.fq_chain(x, y, 50)
+    torch.cuda.synchronize()
+    assert torch.equal(got, int_probe.fq_chain_plain(x, y, 50))
+
+
+@pytest.mark.parametrize('g2', [False, True], ids=['g1', 'g2'])
 def test_msm_on_card(card, g2):
     n = 256
     gen = bn254.G2_GEN if g2 else bn254.G1_GEN

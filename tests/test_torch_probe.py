@@ -13,7 +13,9 @@ import pytest
 import torch
 
 from ethsnarks_tpu_torch import bench, probe
+from ethsnarks_tpu_torch.field import FIELD_MODULUS
 from ethsnarks_tpu_torch.ops import int_probe, kernels
+from ethsnarks_tpu_torch.ops.fp import MONT_R, words_to_ints
 
 from torch_port_helpers import torch_threads  # noqa: F401
 
@@ -80,6 +82,24 @@ def test_int_probe_checks_its_inputs():
         kernels.int_probe('u32_add', x, y[:8], 1)
 
 
+def test_fq_chain_plain_matches_python_ints():
+    """K7b's plain version: x y^k R^-k mod q, k Montgomery products each
+    on the one before; canonical words; bad inputs raise."""
+    x, y = probe.fq_inputs(16, 'cpu', seed=6)
+    got = words_to_ints(kernels.fq_chain(x, y, 5))
+    q = FIELD_MODULUS
+    rinv = pow(MONT_R, -1, q)
+    assert got == [a * pow(b * rinv, 5, q) % q for a, b in
+                   zip(words_to_ints(x), words_to_ints(y))]
+    assert torch.equal(kernels.fq_chain(x, y, 0), x)
+    with pytest.raises(ValueError):
+        kernels.fq_chain(x[:, :4].contiguous(), y[:, :4].contiguous(), 1)
+    with pytest.raises(ValueError):
+        kernels.fq_chain(x, y[:8], 1)
+    with pytest.raises(ValueError):
+        kernels.fq_chain(x, y, -1)
+
+
 def test_probe_and_bench_need_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError):
@@ -88,6 +108,8 @@ def test_probe_and_bench_need_a_card(monkeypatch):
         bench.run(log_n=4)
     with pytest.raises(RuntimeError):
         probe.run(device='cpu')          # the probe measures the card only
+    with pytest.raises(RuntimeError):
+        probe.t_fq_ms(device='cpu')
 
 
 @pytest.mark.parametrize('mode', bench.MODES)
