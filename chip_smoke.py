@@ -46,6 +46,12 @@ Phases (any mismatch fails the run with a non-zero exit):
 3. setup of the fixture: the port's generator on the committed fixture's
    constraint system with the fixture's seeded rng reproduces the
    committed pk.bin and vk.json byte for byte; K4 must launch.
+3b. zk on the fixture: ``generator(zk=True)`` with the same seed must
+   still write the committed pk.bin and vk.json (the zk extras are not
+   part of them) and launch K4 G1 for the B query in G1; an unblinded
+   proof from its key must equal the committed proof.json; two blinded
+   proofs (``blind=True``, a seeded rng) must verify and differ;
+   ``blind=True`` on the nozk fixture key must raise ValueError.
 4. prove the fixture: two proofs from one ProverContext (the key stays on
    the card); each proof's JSON must equal the reference prover's; they
    must launch K1 and K3 of both groups and no other kernel.  One proof
@@ -74,12 +80,25 @@ Phases (any mismatch fails the run with a non-zero exit):
    correct=True), and the probe's main (``python -m
    ethsnarks_tpu_torch.probe``), run in this process so its K7 and K7b
    launches count.
+8. the flagship at full size, on the data of ``python -m
+   ethsnarks_tpu_torch.bench_merkle`` and through its functions:
+   BatchMerkleMembership(29, 48) must have 48 x (29 x 733 + 1) =
+   1,020,384 constraints (domain 2^20); the tree, the witness (the batched
+   MiMC trace on the card, timed alone), ``is_satisfied()``, the setup
+   (both K4 instances), two 'red' proofs (equal JSON, K1 and K3 of both
+   groups and nothing else) and one 'fused' and one 'generic' proof, each
+   equal to the 'red' proof; every proof must pass vk.verify and the one
+   with its public root changed must fail it; the 'red' proof must be
+   accepted by the Verifier.sol bytecode twin (``evm_verifier``) and
+   refused with the root changed.  Phase 6's circuit, key and context are
+   freed first; the host's peak RSS is printed.
 
 Launch counts are reset just before and read just after each path.  The
 last lines are a JSON ``kernels`` record, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.  Without CUDA the script fails.
 """
 
+import gc
 import json
 import os
 import random
@@ -93,7 +112,7 @@ import time
 import numpy as np
 import torch
 
-from ethsnarks_tpu_torch import bench, bn254, probe
+from ethsnarks_tpu_torch import bench, bench_merkle, bn254, probe
 from ethsnarks_tpu_torch.cost import FQ_MUL_IMAD, IMAD_PER_S, OP_IMAD, \
     bound_ms, horner_steps, latency_floor_ms, point_bytes
 from ethsnarks_tpu_torch.field import CURVE_ORDER, FIELD_MODULUS, \
@@ -101,6 +120,7 @@ from ethsnarks_tpu_torch.field import CURVE_ORDER, FIELD_MODULUS, \
 from ethsnarks_tpu_torch.gadgets import MiMCe7_gadget
 from ethsnarks_tpu_torch.groth16 import ProverContext, generator
 from ethsnarks_tpu_torch.mimc import mimc
+from ethsnarks_tpu_torch.models import BatchMerkleMembership
 from ethsnarks_tpu_torch.ops import _build, curve, fold, int_probe, \
     kernels, msm, msm_dense, msm_scan
 from ethsnarks_tpu_torch.ops.batch_exp import BatchExp, C, N_WIN
@@ -123,6 +143,8 @@ CHECK_POINTS = 1 << 14          # points per kernel-vs-twin comparison
 TIME_LANES = 1 << 21            # K1 timing lanes (gathers from 2^20 points)
 FULL_LOG = 20                   # MSM points, transform domain, circuit size
 SCAN_PLAIN_LOG = 20             # K6's plain version is timed on 2^20 elements
+MERKLE_PROOFS = 48              # the flagship: 48 depth-29 proofs, m = 2^20
+MERKLE_DEPTH = bench_merkle.DEPTH
 
 
 def log(*args):
@@ -515,8 +537,7 @@ def phase_kernels(rng, fixture_cs, t_fq):
 
 def fixture_context():
     """The fixture's ProverContext on the card (key uploaded once)."""
-    with open(os.path.join(FIXTURE, "r1cs.json")) as fh:
-        cs = r1cs_from_dict(json.load(fh))
+    cs = fixture_cs()
     t0 = time.perf_counter()
     pk = read_pk_binary(os.path.join(FIXTURE, "pk.bin"), DEV)
     ctx = ProverContext(pk, cs, DEV)
@@ -1121,19 +1142,14 @@ def counting_fold_windows(counts):
 
 # ---------------------------------------------------------------- phase 3
 
-def phase_fixture_setup():
-    """The port's setup of the fixture circuit, with the seeded rng the
-    committed key was made with, must reproduce pk.bin and vk.json."""
-    log("== phase 3: setup of the fixture")
+def fixture_cs():
     with open(os.path.join(FIXTURE, "r1cs.json")) as fh:
-        cs = r1cs_from_dict(json.load(fh))
-    seeded = random.Random(SETUP_SEED)
-    kernels.reset_counts()
-    t0 = time.perf_counter()
-    kp = generator(cs, rng=lambda: seeded.randrange(1, SNARK_SCALAR_FIELD),
-                   device=DEV)
-    dt = time.perf_counter() - t0
-    launches = launch_counts()
+        return r1cs_from_dict(json.load(fh))
+
+
+def check_fixture_key(kp, what):
+    """The keypair writes the committed pk.bin and vk.json byte for
+    byte."""
     path = os.path.join(_build.BUILD_DIR, "fixture_pk.bin")
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
     write_pk_binary(kp.pk, path)
@@ -1141,9 +1157,23 @@ def phase_fixture_setup():
                        ("vk.json", kp.vk.to_json().encode())):
         with open(os.path.join(FIXTURE, name), "rb") as fh:
             if fh.read() != data:
-                fail("fixture setup: %s differs from the committed one"
-                     % name)
+                fail("%s: %s differs from the committed one" % (what, name))
     os.remove(path)
+
+
+def phase_fixture_setup():
+    """The port's setup of the fixture circuit, with the seeded rng the
+    committed key was made with, must reproduce pk.bin and vk.json."""
+    log("== phase 3: setup of the fixture")
+    cs = fixture_cs()
+    seeded = random.Random(SETUP_SEED)
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    kp = generator(cs, rng=lambda: seeded.randrange(1, SNARK_SCALAR_FIELD),
+                   device=DEV)
+    dt = time.perf_counter() - t0
+    launches = launch_counts()
+    check_fixture_key(kp, "fixture setup")
     if launches[kernels.FIXED_BASE_MUL[False].name] == 0:
         fail("fixture setup did not launch K4 fixed_base_mul_g1")
     log("  setup %.3f s: pk.bin and vk.json equal the committed files; "
@@ -1151,6 +1181,60 @@ def phase_fixture_setup():
             dt, json.dumps({k: round(v, 4) for k, v in kp.profile.items()}),
             json.dumps(launches)))
     return {"seconds": dt, "profile": kp.profile, "launches": launches}
+
+
+def phase_fixture_zk(nozk_ctx):
+    """3b: the zk setup of the fixture keeps the committed nozk parts; its
+    unblinded proof is the committed one, blinded proofs verify and
+    differ; a nozk key refuses blinding."""
+    log("== phase 3b: zk setup and blinded proofs of the fixture")
+    cs = fixture_cs()
+    seeded = random.Random(SETUP_SEED)
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    kp = generator(cs, rng=lambda: seeded.randrange(1, SNARK_SCALAR_FIELD),
+                   device=DEV, zk=True)
+    t_setup = time.perf_counter() - t0
+    launches = launch_counts()
+    check_fixture_key(kp, "zk fixture setup")
+    if not kp.pk.has_zk_extras:
+        fail("generator(zk=True) made a key without its zk extras")
+    if launches[kernels.FIXED_BASE_MUL[False].name] < 5:
+        fail("zk setup launched K4 G1 %d times; expected A, H, L, gamma_abc"
+             " and the B query in G1" % launches[
+                 kernels.FIXED_BASE_MUL[False].name])
+    witness = witness_from_json(os.path.join(FIXTURE, "witness.json"))
+    with open(os.path.join(FIXTURE, "proof.json")) as fh:
+        expected = fh.read()
+    ctx = ProverContext(kp.pk, cs, DEV, qap=kp.qap)
+    if ctx.prove(witness).to_json() != expected:
+        fail("the zk key's unblinded proof differs from proof.json")
+    blinder = random.Random(SEED)
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    blinded = [ctx.prove(witness, blind=True, rng=lambda: blinder.randrange(
+        1, SNARK_SCALAR_FIELD)) for _ in range(2)]
+    t_blind = (time.perf_counter() - t0) / 2
+    blind_launches = launch_counts()
+    for rep, proof in enumerate(blinded):
+        if not kp.vk.verify(proof):
+            fail("blinded proof %d does not verify" % rep)
+    if len({p.to_json() for p in blinded} | {expected}) != 3:
+        fail("blinded proofs equal each other or the unblinded proof")
+    try:
+        nozk_ctx.prove(witness, blind=True)
+        fail("blind=True on the nozk fixture key did not raise")
+    except ValueError:
+        pass
+    log("  zk setup %.3f s: pk.bin and vk.json equal the committed files; "
+        "unblinded proof equals proof.json; two blinded proofs (%.3f s "
+        "each) verify and differ; blind=True on the nozk key raises "
+        "ValueError; routes %s; setup launches %s; blinded launches %s" % (
+            t_setup, t_blind, ctx.last_routes, json.dumps(
+                {k: v for k, v in launches.items() if v}),
+            json.dumps({k: v for k, v in blind_launches.items() if v})))
+    return {"setup_seconds": t_setup, "blinded_prove_seconds": t_blind,
+            "setup_launches": launches, "blinded_launches": blind_launches}
 
 
 # ---------------------------------------------------------------- phase 6
@@ -1310,6 +1394,130 @@ def phase_entry_points():
     return out
 
 
+# ---------------------------------------------------------------- phase 8
+
+def host_rss_now_gb():
+    with open("/proc/self/status") as fh:
+        for line in fh:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) / 2 ** 20
+    return float("nan")
+
+
+def phase_merkle():
+    """setup -> proofs of every msm_impl -> both verifiers on the flagship,
+    BatchMerkleMembership(29, MERKLE_PROOFS), on bench_merkle's data."""
+    n_proofs, depth = MERKLE_PROOFS, MERKLE_DEPTH
+    log("== phase 8: the flagship, BatchMerkleMembership(%d, %d)"
+        % (depth, n_proofs))
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("  host RSS %.2f GB (peak so far %.2f GB) with phase 6 freed"
+        % (host_rss_now_gb(), host_rss_gb()))
+    t0 = time.perf_counter()
+    model = BatchMerkleMembership(depth, n_proofs, device=DEV)
+    cs = model.pb
+    t_build = time.perf_counter() - t0
+    want = n_proofs * (depth * 733 + 1)
+    if cs.num_constraints != want:
+        fail("the flagship has %d constraints, not %d"
+             % (cs.num_constraints, want))
+    log("  circuit: %d constraints, %d variables, built in %.1f s; host RSS"
+        " %.2f GB" % (cs.num_constraints, cs.num_variables, t_build,
+                      host_rss_now_gb()))
+    t0 = time.perf_counter()
+    tree = bench_merkle.build_tree(depth, bench_merkle.N_LEAVES)
+    t_tree = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model.set_witness(tree, bench_merkle.proof_indices(
+        n_proofs, bench_merkle.N_LEAVES))
+    t_witness = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if not cs.is_satisfied():
+        fail("the flagship's witness does not satisfy its constraints")
+    t_sat = time.perf_counter() - t0
+    log("  tree of %d leaves %.1f s; witness %.2f s, of which the batched "
+        "MiMC trace on the card %.2f s (%d levels x %d proofs); "
+        "is_satisfied() %.1f s" % (
+            bench_merkle.N_LEAVES, t_tree, t_witness, model.trace_seconds,
+            depth, n_proofs, t_sat))
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    kp = generator(cs, rng=bench_merkle.seeded_rng(), device=DEV)
+    t_setup = time.perf_counter() - t0
+    setup_launches = launch_counts()
+    for k in kernels.SETUP:
+        if setup_launches[k.name] == 0:
+            fail("the flagship's setup did not launch %s" % k.name)
+    log("  setup %.2f s (m = %d); phases %s; launches %s; host peak RSS "
+        "%.2f GB" % (t_setup, kp.qap.domain_size, json.dumps(
+            {k: round(v, 4) for k, v in kp.profile.items()}),
+            json.dumps({k: v for k, v in setup_launches.items() if v}),
+            host_rss_gb()))
+    ctx = ProverContext(kp.pk, cs, DEV, qap=kp.qap)
+    kernels.reset_counts()
+    proofs, runs = [], {}
+    for rep in range(2):
+        t0 = time.perf_counter()
+        proofs.append(ctx.prove(cs.values))
+        dt = time.perf_counter() - t0
+        runs["red_%d" % rep] = {"seconds": dt, "routes": ctx.last_routes,
+                                "profile": ctx.last_profile}
+        log("  'red' proof %d: %.3f s; routes %s; phases %s" % (
+            rep, dt, ctx.last_routes, json.dumps(
+                {k: round(v, 4) for k, v in ctx.last_profile.items()})))
+    red_launches = launch_counts()
+    check_red_launches(red_launches, "the flagship's 'red' proofs")
+    if proofs[0].to_json() != proofs[1].to_json():
+        fail("two nozk proofs of the flagship differ")
+    launches = {"red_x2": red_launches}
+    for impl in ("fused", "generic"):
+        ctx_i = ProverContext(kp.pk, cs, DEV, qap=kp.qap, msm_impl=impl)
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        proof = ctx_i.prove(cs.values)
+        dt = time.perf_counter() - t0
+        launches[impl] = launch_counts()
+        if proof.to_json() != proofs[0].to_json():
+            fail("msm_impl=%r: the flagship proof differs from the 'red' "
+                 "proof" % impl)
+        proofs.append(proof)
+        runs[impl] = {"seconds": dt, "routes": ctx_i.last_routes,
+                      "profile": ctx_i.last_profile}
+        log("  msm_impl=%r: %.3f s, JSON equal to the 'red' proof; routes "
+            "%s; phases %s; launches %s" % (
+                impl, dt, ctx_i.last_routes, json.dumps(
+                    {k: round(v, 4) for k, v in ctx_i.last_profile.items()}),
+                json.dumps({k: v for k, v in launches[impl].items() if v})))
+    t0 = time.perf_counter()
+    for rep, proof in enumerate(proofs):
+        if not kp.vk.verify(proof):
+            fail("flagship proof %d does not verify" % rep)
+    if kp.vk.verify(bench_merkle.root_changed(proofs[0])):
+        fail("the flagship proof with its root changed verifies")
+    t_verify = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    accepted, refused = bench_merkle.evm_check(kp.vk, proofs[0])
+    t_evm = time.perf_counter() - t0
+    if not accepted:
+        fail("the Verifier.sol twin refuses the flagship proof")
+    if not refused:
+        fail("the Verifier.sol twin accepts the proof with its root changed")
+    log("  all %d proofs pass vk.verify, the root-changed one fails it "
+        "(%.2f s); the Verifier.sol twin accepts the 'red' proof and "
+        "refuses it with the root changed (%.2f s); host peak RSS %.2f GB"
+        % (len(proofs), t_verify, t_evm, host_rss_gb()))
+    return {"constraints": cs.num_constraints, "m": kp.qap.domain_size,
+            "build_seconds": t_build, "tree_seconds": t_tree,
+            "witness_seconds": t_witness,
+            "trace_seconds": model.trace_seconds,
+            "is_satisfied_seconds": t_sat, "setup_seconds": t_setup,
+            "setup_profile": kp.profile, "setup_launches": setup_launches,
+            "proofs": runs, "prove_launches": launches,
+            "verify_seconds": t_verify, "evm_seconds": t_evm,
+            "host_peak_rss_gb": host_rss_gb()}
+
+
 # ---------------------------------------------------------------- main
 
 def main():
@@ -1361,6 +1569,7 @@ def main():
         rec.setdefault(name, {}).update(r)
     card_state("after phase 2c")
     fixture_setup = phase_fixture_setup()
+    fixture_zk = phase_fixture_zk(ctx)
     launches, profiles = phase_prove(ctx)
     log("== phase 5: full size")
     card_state("before the MSMs")
@@ -1385,15 +1594,21 @@ def main():
         % json.dumps(fold_windows))
     card_state("after phase 6")
     entry = phase_entry_points()
+    merkle = phase_merkle()
     card_state("at the end")
     log("  full-path results: %s" % json.dumps(
-        dict(path, fixture_setup=fixture_setup), default=str))
-    # launches by path: the 2^20 setup (K4), its two 'red' proofs (K1,
-    # K3), its 'fused' and 'generic' proofs and the 5b MSMs (K1-K3, K5,
+        dict(path, fixture_setup=fixture_setup, fixture_zk=fixture_zk),
+        default=str))
+    log("  flagship results: %s" % json.dumps(merkle, default=str))
+    # launches by path: the 2^20 setups (K4), their two 'red' proofs (K1,
+    # K3), their 'fused' and 'generic' proofs and the 5b MSMs (K1-K3, K5,
     # K6), and the probe (K7, K7b); "launches" is their sum
     by_path = {"setup_2^20": path["setup_launches"],
                "prove_2^20_red_x2": path["prove_launches"],
-               "probe": entry["probe_launches"]}
+               "probe": entry["probe_launches"],
+               "setup_2^20_merkle": merkle["setup_launches"]}
+    for impl, counts in merkle["prove_launches"].items():
+        by_path["prove_2^20_merkle_" + impl] = counts
     for impl, r in path["msm_impls"].items():
         by_path["prove_2^20_" + impl] = r["launches"]
     for tag in ("msm_g1", "msm_g2"):

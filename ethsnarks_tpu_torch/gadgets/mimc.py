@@ -1,7 +1,12 @@
-"""MiMC cipher gadgets (own copy of the cipher part of
+"""MiMC cipher gadgets and one-way-function modes (own copy of
 ``ethsnarks_tpu/gadgets/mimc.py``): MiMC-e7, 91 rounds of 4 constraints,
-round constants from the host oracle's Keccak chain.  The one-way-function
-modes and the e5 variant wait for a later slice.
+MiMC-e5, 110 rounds of 3, round constants from the host oracle's Keccak
+chain; Miyaguchi-Preneel (one more constraint a block) and Merkle-Damgard.
+
+Variables are allocated in the reference's order: a round's ``t2, t4,
+[t6], out``, a cipher's rounds in turn, and in Miyaguchi-Preneel each
+block's cipher, then its chaining value.  The batched witness of
+:mod:`..ops.mimc` and :mod:`..models.merkle_batch` rely on that layout.
 """
 
 from ..field import SNARK_SCALAR_FIELD
@@ -94,3 +99,69 @@ class _MiMC_cipher(Gadget):
 class MiMCe7_gadget(_MiMC_cipher):
     e = 7
     rounds = 91
+
+
+class MiMCe5_gadget(_MiMC_cipher):
+    e = 5
+    rounds = 110
+
+
+class MiyaguchiPreneel_OWF(Gadget):
+    """H_i = E_{H_{i-1}}(m_i) + H_{i-1} + m_i (1 extra constraint/block)."""
+
+    def __init__(self, pb, messages, iv_lc, annotation, cipher=MiMCe7_gadget):
+        super().__init__(pb, annotation)
+        self.messages = [LinearCombination() + m for m in messages]
+        self.keys = []
+        self.ciphers = []
+        self.outputs = []
+        k = LinearCombination() + iv_lc
+        for i, m in enumerate(self.messages):
+            self.keys.append(k)
+            self.ciphers.append(cipher(pb, m, k, self.fmt('cipher_%d' % i)))
+            out = pb.allocate(self.fmt('out_%d' % i))
+            self.outputs.append(out)
+            k = LinearCombination() + out
+
+    def generate_r1cs_constraints(self):
+        for i, (m, c) in enumerate(zip(self.messages, self.ciphers)):
+            c.generate_r1cs_constraints()
+            self.pb.add_constraint(
+                self.keys[i] + c.result() + m, 1, self.outputs[i],
+                self.fmt('mp_%d' % i))
+
+    def generate_r1cs_witness(self):
+        p = SNARK_SCALAR_FIELD
+        for i, (m, c) in enumerate(zip(self.messages, self.ciphers)):
+            c.generate_r1cs_witness()
+            v = (self.pb.lc_val(self.keys[i]) + self.pb.val(c.result())
+                 + self.pb.lc_val(m)) % p
+            self.pb.setval(self.outputs[i], v)
+
+    def result(self):
+        return self.outputs[-1]
+
+
+class MerkleDamgard_OWF(Gadget):
+    """k_i = E_{k_{i-1}}(m_i); the output is the last cipher's result."""
+
+    def __init__(self, pb, messages, iv_lc, annotation, cipher=MiMCe7_gadget):
+        super().__init__(pb, annotation)
+        self.ciphers = []
+        k = LinearCombination() + iv_lc
+        for i, m in enumerate(messages):
+            c = cipher(pb, LinearCombination() + m, k,
+                       self.fmt('cipher_%d' % i))
+            self.ciphers.append(c)
+            k = LinearCombination() + c.result()
+
+    def generate_r1cs_constraints(self):
+        for c in self.ciphers:
+            c.generate_r1cs_constraints()
+
+    def generate_r1cs_witness(self):
+        for c in self.ciphers:
+            c.generate_r1cs_witness()
+
+    def result(self):
+        return self.ciphers[-1].result()

@@ -1,6 +1,6 @@
-"""nozk Groth16 setup and prover on the card (counterparts of
-``ethsnarks_tpu/groth16.py`` ``generator``, :176-291, and of the device
-branch of ``ProverContext.prove``, :697-790).
+"""Groth16 setup and prover on the card (counterparts of
+``ethsnarks_tpu/groth16.py`` ``Config``, :67-103, ``generator``, :176-291,
+and of the device branch of ``ProverContext.prove``, :636-790).
 
 Setup: the QAP, the seeded draws of t, alpha, beta, gamma and delta, the
 host instance map, then every query as one fixed-base batch
@@ -14,6 +14,11 @@ design that ``msm_impl`` names (:class:`ProverContext`), and host
 finalisation (alpha + A, beta + B, H + L).  nozk proofs carry no blinding
 and are deterministic: the same witness gives the reference host prover's
 exact proof, whatever the MSM design.
+
+The zk form: ``generator(zk=True)`` also keeps delta and beta in G1 and
+the B query in G1 (one more K4 G1 batch), and ``prove(blind=True)`` adds
+the Groth16 r/s blinding on the host, with B in G1 from a fifth MSM (G1,
+over the B query's digits) on the card.
 """
 
 import secrets
@@ -22,7 +27,7 @@ import time
 import torch
 
 from . import resolve_device
-from .bn254 import G1_GEN, G2_GEN, add
+from .bn254 import G1_GEN, G2_GEN, add, multiply, neg
 from .field import SNARK_SCALAR_FIELD
 from .ops import curve, msm_dense, msm_scan
 from .ops.batch_exp import BatchExp
@@ -34,14 +39,54 @@ from .verifier import Proof, VerifyingKey
 P = SNARK_SCALAR_FIELD
 
 
+class Config(object):
+    """Prover tuning, with the reference's knobs (``ethsnarks_tpu/
+    groth16.py:67-103``, libsnark's prover_config.hpp).
+
+    - multi_exp_c: the window bits of every MSM (None: ``best_c`` of each
+      MSM's size).
+    - msm_max_lanes, msm_static_plan: the TPU red pipeline's lane budget
+      and digit planning; accepted, no effect here (the port's MSMs plan
+      on the card from the digits themselves).
+    - fft ('dif_dit'; 'basic_radix2' and 'recursive' accepted as aliases),
+      swapAB, num_threads, smt, radixes, multi_exp_prefetch_locality,
+      prefetch_stride, multi_exp_look_ahead: CPU-only knobs of the
+      reference, accepted, no effect.
+    """
+
+    def __init__(self, multi_exp_c=None, fft='dif_dit', swapAB=False,
+                 num_threads=0, smt=False, radixes=(),
+                 multi_exp_prefetch_locality=3, prefetch_stride=0,
+                 multi_exp_look_ahead=1, msm_max_lanes=None,
+                 msm_static_plan='auto'):
+        self.multi_exp_c = multi_exp_c
+        self.fft = fft
+        self.swapAB = swapAB
+        self.num_threads = num_threads
+        self.smt = smt
+        self.radixes = tuple(radixes)
+        self.multi_exp_prefetch_locality = multi_exp_prefetch_locality
+        self.prefetch_stride = prefetch_stride
+        self.multi_exp_look_ahead = multi_exp_look_ahead
+        self.msm_max_lanes = msm_max_lanes
+        if msm_static_plan not in ('auto', True, False):
+            raise ValueError("msm_static_plan %r: 'auto', True or False"
+                             % (msm_static_plan,))
+        self.msm_static_plan = msm_static_plan
+
+
 class ProvingKey(object):
-    """nozk proving key.  Header points are host affine; the queries are
-    point tensors (Montgomery words, infinity = (0, 1, 0)): sparse A (G1)
-    and B (G2) with their variable indices, the dense H query in
-    bit-reversed order, and the L query over the aux variables."""
+    """Proving key.  Header points are host affine; the queries are point
+    tensors (Montgomery words, infinity = (0, 1, 0)): sparse A (G1) and B
+    (G2) with their variable indices, the dense H query in bit-reversed
+    order, and the L query over the aux variables.
+
+    The zk extras (None on a nozk key): delta_g1 and beta_g1 (host affine)
+    and ``b1_pts``, the B query in G1 over the same ``b_idx``."""
 
     def __init__(self, alpha_g1, beta_g2, delta_g2, a_idx, a_pts, b_idx,
-                 b_pts, h_pts, l_pts, num_inputs):
+                 b_pts, h_pts, l_pts, num_inputs, delta_g1=None,
+                 beta_g1=None, b1_pts=None):
         self.alpha_g1 = alpha_g1
         self.beta_g2 = beta_g2
         self.delta_g2 = delta_g2
@@ -50,6 +95,14 @@ class ProvingKey(object):
         self.h_pts = h_pts
         self.l_pts = l_pts
         self.num_inputs = num_inputs
+        self.delta_g1 = delta_g1
+        self.beta_g1 = beta_g1
+        self.b1_pts = b1_pts
+
+    @property
+    def has_zk_extras(self):
+        return (self.delta_g1 is not None and self.beta_g1 is not None
+                and self.b1_pts is not None)
 
     def to(self, device):
         """The same key with every query tensor on ``device``."""
@@ -57,7 +110,9 @@ class ProvingKey(object):
             self.alpha_g1, self.beta_g2, self.delta_g2,
             self.a_idx.to(device), self.a_pts.to(device),
             self.b_idx.to(device), self.b_pts.to(device),
-            self.h_pts.to(device), self.l_pts.to(device), self.num_inputs)
+            self.h_pts.to(device), self.l_pts.to(device), self.num_inputs,
+            self.delta_g1, self.beta_g1,
+            None if self.b1_pts is None else self.b1_pts.to(device))
 
 
 class Keypair(object):
@@ -88,16 +143,16 @@ def _spans(marks):
 
 
 def generator(cs, rng=None, device=None, zk=False):
-    """Trusted setup of a nozk keypair for a finished constraint system.
+    """Trusted setup of a keypair for a finished constraint system.
 
     rng: callable returning random field elements; the same rng gives the
-    reference ``generator(device_exp=False)``'s keypair, point for point
-    (default: rejection-sampled ``secrets.randbelow``).  Every query is
-    one K4 launch; the header points are host multiples.  The phase seconds, synchronised at each mark and named as the
-    reference's marks, are left in the keypair's ``profile``."""
-    if zk:
-        raise NotImplementedError(
-            "zk keys are not ported: this setup makes nozk keys")
+    reference ``generator(device_exp=False, zk=zk)``'s keypair, point for
+    point (default: rejection-sampled ``secrets.randbelow``).  Every query
+    is one K4 launch; the header points are host multiples.  zk: also keep
+    delta_g1, beta_g1 and the B query in G1 (one more K4 G1 launch), which
+    ``prove(blind=True)`` needs; the draws are the same either way.  The
+    phase seconds, synchronised at each mark and named as the reference's
+    marks, are left in the keypair's ``profile``."""
     dev = resolve_device(device)
     marks, mark = _marker(dev)
     mark('start')
@@ -146,12 +201,17 @@ def generator(cs, rng=None, device=None, zk=False):
     delta_g2 = g2.mul(delta)
     vk = VerifyingKey(alpha=alpha_g1, beta=beta_g2, gamma=g2.mul(gamma),
                       delta=delta_g2, gammaABC=gamma_abc)
+    zk_extras = {}
+    if zk:
+        zk_extras = dict(delta_g1=g1.mul(delta), beta_g1=g1.mul(beta),
+                         b1_pts=g1.mul_many([Bt[i] for i in b_idx]))
+        mark('b_query_g1')
     pk = ProvingKey(
         alpha_g1=alpha_g1, beta_g2=beta_g2, delta_g2=delta_g2,
         a_idx=torch.tensor(a_idx, dtype=torch.int64, device=dev),
         a_pts=a_pts,
         b_idx=torch.tensor(b_idx, dtype=torch.int64, device=dev),
-        b_pts=b_pts, h_pts=h_pts, l_pts=l_pts, num_inputs=ni)
+        b_pts=b_pts, h_pts=h_pts, l_pts=l_pts, num_inputs=ni, **zk_extras)
     mark('vk_pk')
     return Keypair(pk, vk, _spans(marks), qap)
 
@@ -168,13 +228,16 @@ class ProverContext(object):
     sort + segmented-sum MSM of :mod:`.ops.msm`; 'fused', the dense
     all-windows MSM of :mod:`.ops.msm_dense` (with its fallbacks to the scan
     MSM); 'generic', the scan MSM of :mod:`.ops.msm_scan` with the generic
-    window step.  All give the same proof."""
+    window step.  All give the same proof.  config: a :class:`Config`;
+    its ``multi_exp_c`` sets every MSM's window bits."""
 
-    def __init__(self, pk, cs, device=None, qap=None, msm_impl='auto'):
+    def __init__(self, pk, cs, device=None, qap=None, msm_impl='auto',
+                 config=None):
         if msm_impl not in MSM_IMPLS:
             raise ValueError("msm_impl %r: one of %s"
                              % (msm_impl, ", ".join(MSM_IMPLS)))
         self.msm_impl = msm_impl
+        self.config = config or Config()
         self.device = resolve_device(device)
         self.pk = pk.to(self.device)
         if qap is not None and qap.device != self.device:
@@ -186,10 +249,12 @@ class ProverContext(object):
                              % (self.pk.h_pts.shape[0], self.qap.domain_size))
         ni, nv = pk.num_inputs, self.qap.num_variables
         self.l_idx = torch.arange(ni + 1, nv, device=self.device)
-        self.c = dict(h=best_c(self.qap.domain_size),
-                      a=best_c(self.pk.a_idx.shape[0]),
-                      b=best_c(self.pk.b_idx.shape[0]),
-                      l=best_c(nv - ni - 1))
+        pick = (lambda n: self.config.multi_exp_c) \
+            if self.config.multi_exp_c else best_c
+        self.c = dict(h=pick(self.qap.domain_size),
+                      a=pick(self.pk.a_idx.shape[0]),
+                      b=pick(self.pk.b_idx.shape[0]),
+                      l=pick(nv - ni - 1))
         self.last_profile = None
         self.last_routes = None
 
@@ -202,14 +267,26 @@ class ProverContext(object):
                 points, digits, c), 'scan'
         return (msm_g2 if g2 else msm_g1)(points, digits, c), 'red'
 
-    def prove(self, witness_values, blind=False):
-        """witness_values: the full assignment [1, inputs.., aux..] as ints.
-        Returns a :class:`Proof`; per-phase wall seconds are left in
-        ``self.last_profile`` and each MSM's route in ``self.last_routes``."""
-        if blind:
-            raise NotImplementedError(
-                "r/s blinding is not ported: this prover makes nozk proofs")
+    def prove(self, witness_values, primary_input=None, blind=False,
+              rng=None):
+        """witness_values: the full assignment [1, inputs.., aux..] as ints
+        (``primary_input`` is accepted as the reference accepts it, and
+        unused: the inputs are read from the assignment).  Returns a
+        :class:`Proof`; per-phase wall seconds are left in
+        ``self.last_profile`` and each MSM's route in ``self.last_routes``.
+
+        blind: the Groth16 r/s blinding (``ethsnarks_tpu/groth16.py
+        :777-790``): r, then s, drawn from ``rng`` (default: rejection-
+        sampled ``secrets.randbelow``); A += r delta, B += s delta, C += s A
+        + r B1 - r s delta, with B1 = beta + the B query in G1 (a fifth
+        MSM).  Needs a key from ``generator(zk=True)``: ValueError on a
+        nozk key."""
         pk, c = self.pk, self.c
+        if blind and not pk.has_zk_extras:
+            raise ValueError(
+                "blind=True needs a zk-form key: generate with "
+                "generator(zk=True); nozk keys drop delta_g1/beta_g1/"
+                "B1-query")
         ni = pk.num_inputs
         w = [int(v) % P for v in witness_values]
         if len(w) != self.qap.num_variables or w[0] != 1:
@@ -235,8 +312,20 @@ class ProverContext(object):
         mark('b_msm_g2')
         l_eval, routes['l'] = self._msm(pk.l_pts, l_d, c['l'], False)
         mark('l_msm')
-        proof = Proof(A=add(pk.alpha_g1, a_eval), B=add(pk.beta_g2, b_eval),
-                      C=add(h_eval, l_eval), input=w[1:1 + ni])
+        g_a = add(pk.alpha_g1, a_eval)
+        g_b = add(pk.beta_g2, b_eval)
+        g_c = add(h_eval, l_eval)
+        if blind:
+            b1_eval, routes['b1'] = self._msm(pk.b1_pts, b_d, c['b'], False)
+            mark('b1_msm')
+            rng = rng or (lambda: secrets.randbelow(P - 1) + 1)
+            r, s = rng(), rng()
+            g_b1 = add(add(pk.beta_g1, b1_eval), multiply(pk.delta_g1, s))
+            g_a = add(g_a, multiply(pk.delta_g1, r))
+            g_b = add(g_b, multiply(pk.delta_g2, s))
+            g_c = add(g_c, add(multiply(g_a, s), add(
+                multiply(g_b1, r), neg(multiply(pk.delta_g1, r * s % P)))))
+        proof = Proof(A=g_a, B=g_b, C=g_c, input=w[1:1 + ni])
         mark('finalise')
         self.last_profile = _spans(marks)
         self.last_routes = routes

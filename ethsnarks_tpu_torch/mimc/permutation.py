@@ -1,10 +1,11 @@
-"""MiMC block cipher, host oracle (own copy of the cipher part of
+"""MiMC block cipher and its two hash modes, host oracle (own copy of
 ``ethsnarks_tpu/mimc/permutation.py``).
 
 Round constants are the iterated Keccak-256 chain seeded with
 keccak(b"mimc"), used unreduced (the rounds reduce mod p); MiMC-e7 runs
-91 rounds of x <- (x + k + c_i)^7, then adds k.  The hash modes wait for
-a later slice.
+91 rounds of x <- (x + k + c_i)^7, then adds k.  ``mimc_hash`` is
+Miyaguchi-Preneel (k' = k + x + E_k(x)), ``mimc_hash_md`` Merkle-Damgard
+(k' = E_k(x)).  The batched version on tensors is :mod:`..ops.mimc`.
 """
 
 from ..field import SNARK_SCALAR_FIELD
@@ -58,3 +59,22 @@ def mimc(x, k, seed=DEFAULT_SEED, p=SNARK_SCALAR_FIELD, e=DEFAULT_EXPONENT,
     for c_i in constants_list(seed, p, R):
         x = pow((x + k + c_i) % p, e, p)
     return (x + k) % p
+
+
+def mimc_hash(x, k=0, seed=DEFAULT_SEED, p=SNARK_SCALAR_FIELD,
+              e=DEFAULT_EXPONENT, R=DEFAULT_ROUNDS):
+    """Miyaguchi-Preneel one-way compression of the blocks ``x``."""
+    k = int(k)
+    for x_i in x:
+        x_i = int(x_i)
+        k = (k + x_i + mimc(x_i, k, seed, p, e, R)) % p
+    return k
+
+
+def mimc_hash_md(x, k=0, seed=DEFAULT_SEED, p=SNARK_SCALAR_FIELD,
+                 e=DEFAULT_EXPONENT, R=DEFAULT_ROUNDS):
+    """Merkle-Damgard chaining of the blocks ``x`` through the cipher."""
+    k = int(k)
+    for x_i in x:
+        k = mimc(int(x_i), k, seed, p, e, R)
+    return k

@@ -10,6 +10,7 @@ Gadgets wire variables in their constructor, then emit constraints
 (``generate_r1cs_constraints``) and fill values (``generate_r1cs_witness``).
 """
 
+import sys
 from itertools import chain
 
 import numpy as np
@@ -17,6 +18,12 @@ import numpy as np
 from .field import SNARK_SCALAR_FIELD
 
 P = SNARK_SCALAR_FIELD
+
+
+def r1cs_constraint(a, b, c):
+    """Host sanity check of one product: raises unless a * b == c mod r."""
+    if (int(a) * int(b)) % P != int(c) % P:
+        raise RuntimeError("R1CS Constraint Failed!")
 
 
 class Variable(object):
@@ -141,6 +148,10 @@ class ConstraintSystem(object):
         self.values.append(0)
         return Variable(len(self.values) - 1)
 
+    def allocate_array(self, n, annotation=''):
+        """n fresh variables annotated ``annotation[i]``."""
+        return [self.allocate('%s[%d]' % (annotation, i)) for i in range(n)]
+
     def set_input_sizes(self, n):
         """The first n variables allocated after ONE are the public
         inputs."""
@@ -182,6 +193,12 @@ class ConstraintSystem(object):
                 return False
         return True
 
+    def primary_input(self):
+        return list(self.values[1:1 + self.num_inputs])
+
+    def auxiliary_input(self):
+        return list(self.values[1 + self.num_inputs:])
+
     def to_coo(self):
         """{'a'|'b'|'c': (rows int64, cols int64, coeffs list of ints)}."""
         out = {}
@@ -198,6 +215,24 @@ class ConstraintSystem(object):
                 t.values() for t in term_dicts))
             out[name] = (rows, cols, coeffs)
         return out
+
+
+def dump_pb_r1cs_constraints(cs, limit=None, out=None):
+    """Write the first ``limit`` constraints (all by default) with their
+    annotations and annotated terms to ``out`` (default stdout), in the
+    reference's format."""
+    out = out or sys.stdout
+    for i, cons in enumerate(cs.constraints[:limit]):
+        out.write("constraint %d (%s):\n" % (i, cons.annotation))
+        for name, lc in (('A', cons.a), ('B', cons.b), ('C', cons.c)):
+            terms = ' + '.join(
+                '%s*%s' % (v, cs.annotations[k] if k < len(cs.annotations)
+                           else 'v%d' % k)
+                for k, v in sorted(lc.terms.items()))
+            out.write("  %s: %s\n" % (name, terms or '0'))
+
+
+Protoboard = ConstraintSystem
 
 
 class Gadget(object):

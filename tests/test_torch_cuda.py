@@ -282,3 +282,54 @@ def test_prove_fixture_msm_impls_on_card(card):
     for impl in ('fused', 'generic'):
         ctx = ProverContext(pk, cs, msm_impl=impl)
         assert ctx.prove(witness).to_json() == want
+
+
+def test_fixture_zk_key_and_blinded_proofs_on_card(card, tmp_path):
+    """generator(zk=True) on the card keeps the committed nozk key; its
+    unblinded proof is proof.json, blinded proofs verify and differ, and
+    the nozk key refuses blinding."""
+    with open(os.path.join(FIXTURE, "r1cs.json")) as fh:
+        cs = r1cs_from_dict(json.load(fh))
+    seeded = random.Random(20261016)
+    kp = generator(cs, rng=lambda: seeded.randrange(1, SNARK_SCALAR_FIELD),
+                   zk=True)
+    assert kp.pk.has_zk_extras and kp.pk.b1_pts.is_cuda
+    write_pk_binary(kp.pk, str(tmp_path / "pk.bin"))
+    with open(os.path.join(FIXTURE, "pk.bin"), "rb") as fh:
+        assert (tmp_path / "pk.bin").read_bytes() == fh.read()
+    witness = witness_from_json(os.path.join(FIXTURE, "witness.json"))
+    ctx = ProverContext(kp.pk, cs, qap=kp.qap)
+    with open(os.path.join(FIXTURE, "proof.json")) as fh:
+        assert ctx.prove(witness).to_json() == fh.read()
+    blinder = random.Random(5)
+    proofs = [ctx.prove(witness, blind=True, rng=lambda: blinder.randrange(
+        1, SNARK_SCALAR_FIELD)) for _ in range(2)]
+    assert ctx.last_routes['b1'] == 'red'
+    assert all(kp.vk.verify(p) for p in proofs)
+    assert proofs[0].to_json() != proofs[1].to_json()
+    nozk = ProverContext(read_pk_binary(os.path.join(FIXTURE, "pk.bin")), cs)
+    with pytest.raises(ValueError):
+        nozk.prove(witness, blind=True)
+
+
+def test_mimc_trace_on_card_matches_cpu(card):
+    """The batched MiMC MP trace at the flagship's shape (29 chained
+    levels, a batch of 48) on the card, word for word its CPU run."""
+    from ethsnarks_tpu_torch.gadgets import merkle_tree_IVs
+    from ethsnarks_tpu_torch.ops.fp import Fr
+    from ethsnarks_tpu_torch.ops.mimc import mimc_mp_witness_device
+    rng = np.random.default_rng(29)
+
+    def rand48():
+        return [int.from_bytes(rng.bytes(32), 'little') % SNARK_SCALAR_FIELD
+                for _ in range(48)]
+
+    left = Fr.ints_to_h16(rand48(), 'cpu', mont=True)
+    for iv in merkle_tree_IVs(29):
+        right = Fr.ints_to_h16(rand48(), 'cpu', mont=True)
+        out, aux = mimc_mp_witness_device(left.to(card), right.to(card), iv)
+        want_out, want_aux = mimc_mp_witness_device(left, right, iv)
+        assert aux.is_cuda and aux.shape == (16, 730, 48)
+        assert torch.equal(out.cpu(), want_out)
+        assert torch.equal(aux.cpu(), want_aux)
+        left = want_out

@@ -1,9 +1,10 @@
 """The port's fixture proof and verifying key (ethsnarks_tpu_torch/
 fixtures/mimc_chain_10), read by the port's readers, accepted by the
-bytecode twin of contracts/Verifier.sol (the JAX package's
-evm_verifier, on the mini-EVM of tests/test_evm_verifier.py); a proof
-with one coordinate changed is refused.  The points cross between the
-packages as integers."""
+bytecode twin of contracts/Verifier.sol, both the JAX package's
+evm_verifier (on the mini-EVM of tests/test_evm_verifier.py) and the
+port's own copy (ethsnarks_tpu_torch.evm_verifier on its evmasm); a proof
+with one coordinate changed is refused.  The points cross to the JAX
+package as integers; the port's twin reads the port's own objects."""
 import os
 
 import pytest
@@ -14,6 +15,7 @@ from ethsnarks_tpu.evmasm import EvmError, execute
 from ethsnarks_tpu.verifier import Proof as RefProof, \
     VerifyingKey as RefVerifyingKey
 
+from ethsnarks_tpu_torch import evm_verifier, evmasm
 from ethsnarks_tpu_torch.verifier import Proof, VerifyingKey
 
 FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
@@ -42,12 +44,27 @@ def _run(vk, proof):
     return bool(int.from_bytes(out, 'big'))
 
 
-@pytest.fixture(scope="module")
-def fixture_key_and_proof():
+def _port_fixture():
     vk = VerifyingKey.from_file(os.path.join(FIXTURE, "vk.json"))
     with open(os.path.join(FIXTURE, "proof.json")) as fh:
-        proof = Proof.from_json(fh.read())
-    return _ints(vk, proof)
+        return vk, Proof.from_json(fh.read())
+
+
+@pytest.fixture(scope="module")
+def fixture_key_and_proof():
+    return _ints(*_port_fixture())
+
+
+def test_port_verifier_code_equals_reference():
+    assert evm_verifier.groth16_verifier_code() == groth16_verifier_code()
+
+
+def test_fixture_proof_accepted_by_port_twin():
+    vk, proof = _port_fixture()
+    assert evm_verifier.evm_verify(vk, proof)
+    ref_vk, ref_proof = _ints(vk, proof)
+    assert evm_verifier.encode_calldata(vk, proof) == \
+        encode_calldata(ref_vk, ref_proof)
 
 
 def test_fixture_proof_accepted(fixture_key_and_proof):
@@ -72,4 +89,23 @@ def test_tampered_fixture_proof_refused(fixture_key_and_proof, where):
     try:
         assert not _run(vk, bad)
     except EvmError:
+        pass
+
+
+@pytest.mark.parametrize('where', ['A.y', 'C.x', 'input'])
+def test_tampered_fixture_proof_refused_by_port_twin(where):
+    """As above, on the port's own execute: refused or reverted."""
+    from ethsnarks_tpu_torch.bn254 import Fq
+    vk, proof = _port_fixture()
+    A, C, inputs = list(proof.A), list(proof.C), list(proof.input)
+    if where == 'A.y':
+        A[1] = Fq(A[1].n + 1)
+    elif where == 'C.x':
+        C[0] = Fq(C[0].n + 1)
+    else:
+        inputs[0] += 1
+    bad = Proof(tuple(A), proof.B, tuple(C), inputs)
+    try:
+        assert not evm_verifier.evm_verify(vk, bad)
+    except evmasm.EvmError:
         pass

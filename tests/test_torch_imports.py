@@ -23,8 +23,31 @@ def _forbidden(name):
     return top in ("jax", "jaxlib", "ethsnarks_tpu")
 
 
+# the Merkle flagship's and the zk form's modules (each also parsed below)
+MERKLE_AND_ZK = [
+    "ethsnarks_tpu_torch/bench_merkle.py",
+    "ethsnarks_tpu_torch/evm_verifier.py",
+    "ethsnarks_tpu_torch/evmasm.py",
+    "ethsnarks_tpu_torch/gadgets/merkle.py",
+    "ethsnarks_tpu_torch/merkletree.py",
+    "ethsnarks_tpu_torch/models/__init__.py",
+    "ethsnarks_tpu_torch/models/_prove.py",
+    "ethsnarks_tpu_torch/models/merkle_batch.py",
+    "ethsnarks_tpu_torch/models/merkle_membership.py",
+    "ethsnarks_tpu_torch/models/mimc_preimage.py",
+    "ethsnarks_tpu_torch/ops/mimc.py",
+    "ethsnarks_tpu_torch/poseidon/__init__.py",
+    "ethsnarks_tpu_torch/poseidon/permutation.py",
+]
+
+
 def test_port_has_modules():
     assert len(_sources()) >= 15
+
+
+@pytest.mark.parametrize("relpath", MERKLE_AND_ZK)
+def test_merkle_and_zk_modules_present(relpath):
+    assert relpath in _sources()
 
 
 @pytest.mark.parametrize("relpath", _sources())

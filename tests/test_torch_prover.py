@@ -14,7 +14,7 @@ from ethsnarks_tpu.serialization import r1cs_to_dict, write_pk_binary
 from ethsnarks_tpu.verifier import Proof as RefProof
 
 import ethsnarks_tpu_torch
-from ethsnarks_tpu_torch.groth16 import ProverContext
+from ethsnarks_tpu_torch.groth16 import Config, ProverContext
 from ethsnarks_tpu_torch.serialization import read_pk_binary, \
     r1cs_from_dict, witness_from_json
 from ethsnarks_tpu_torch.verifier import Proof
@@ -88,10 +88,28 @@ def test_default_device_without_cuda_raises(monkeypatch, cubic):
 
 
 def test_blind_not_ported(cubic):
+    """A nozk key (the binary key holds no zk extras) refuses blinding with
+    the reference's ValueError; a witness not starting with 1 is refused
+    too."""
     pb, _, path = cubic
     ctx = ProverContext(read_pk_binary(path, 'cpu'),
                         r1cs_from_dict(r1cs_to_dict(pb)), 'cpu')
-    with pytest.raises(NotImplementedError):
+    assert not ctx.pk.has_zk_extras
+    with pytest.raises(ValueError):
         ctx.prove(pb.values, blind=True)
     with pytest.raises(ValueError):
         ctx.prove([2] + pb.values[1:])
+
+
+def test_config_multi_exp_c_sets_every_window(cubic):
+    """Config(multi_exp_c=c) gives every MSM c window bits, and the proof
+    stays the reference's."""
+    pb, keypair, path = cubic
+    ctx = ProverContext(read_pk_binary(path, 'cpu'),
+                        r1cs_from_dict(r1cs_to_dict(pb)), 'cpu',
+                        config=Config(multi_exp_c=9))
+    assert ctx.c == dict(h=9, a=9, b=9, l=9)
+    want = RefContext(keypair.pk, pb, use_device_msm=False).prove(pb.values)
+    assert ctx.prove(pb.values).to_json() == want.to_json()
+    with pytest.raises(ValueError):
+        Config(msm_static_plan='sometimes')

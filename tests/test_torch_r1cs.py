@@ -7,15 +7,18 @@ import os
 
 import pytest
 
+from ethsnarks_tpu.field import SNARK_SCALAR_FIELD
 from ethsnarks_tpu.keccak import keccak_256 as ref_keccak
 from ethsnarks_tpu.mimc import mimc as ref_mimc
 from ethsnarks_tpu.mimc import mimc_constants as ref_constants
-from ethsnarks_tpu.r1cs import ConstraintSystem as RefConstraintSystem
+from ethsnarks_tpu.r1cs import ConstraintSystem as RefConstraintSystem, \
+    dump_pb_r1cs_constraints as ref_dump, r1cs_constraint as ref_constraint
 
 from ethsnarks_tpu_torch.keccak import keccak_256
 from ethsnarks_tpu_torch.mimc import mimc, mimc_constants
 from ethsnarks_tpu_torch.qap import QAP
-from ethsnarks_tpu_torch.r1cs import ConstraintSystem, LinearCombination
+from ethsnarks_tpu_torch.r1cs import ConstraintSystem, LinearCombination, \
+    Protoboard, dump_pb_r1cs_constraints, r1cs_constraint
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 
@@ -116,3 +119,50 @@ def test_linear_combination_arithmetic():
     assert cs.lc_val(lc) == 7
     with pytest.raises(TypeError):
         x._lc() * y
+
+
+def _array_board(cls):
+    """Two public inputs from allocate_array, one aux array, a product."""
+    pb = cls()
+    ins = pb.allocate_array(2, 'in')
+    pb.set_input_sizes(2)
+    aux = pb.allocate_array(3, 'aux')
+    pb.add_constraint(ins[0], ins[1], aux[0], 'prod')
+    pb.add_constraint(aux[0] + 3 * aux[1] - 7, ins[0] + 1, aux[2], 'mix')
+    for var, val in zip(ins + aux, (3, 5, 15, 2, (15 + 6 - 7) * 4)):
+        pb.setval(var, val)
+    return pb
+
+
+def test_dsl_additions_match_reference(capsys):
+    """allocate_array, primary_input, auxiliary_input and
+    dump_pb_r1cs_constraints give the reference's variables, values and
+    text; Protoboard is the constraint system."""
+    assert Protoboard is ConstraintSystem
+    got, want = _array_board(ConstraintSystem), \
+        _array_board(RefConstraintSystem)
+    assert got.annotations == want.annotations == \
+        ['ONE', 'in[0]', 'in[1]', 'aux[0]', 'aux[1]', 'aux[2]']
+    assert got.primary_input() == want.primary_input() == [3, 5]
+    assert got.auxiliary_input() == want.auxiliary_input() == [15, 2, 56]
+    assert got.is_satisfied()
+    lines = []
+    for limit in (None, 1):
+        ref_dump(want, limit)
+        want_out = capsys.readouterr().out
+        dump_pb_r1cs_constraints(got, limit)
+        assert capsys.readouterr().out == want_out
+        lines.append(want_out.count('constraint '))
+    assert lines == [2, 1]
+
+
+@pytest.mark.parametrize('a,b,c', [(3, 5, 15), (3, 5, 16), (-1, -1, 1)])
+def test_r1cs_constraint_matches_reference(a, b, c):
+    def outcome(fn):
+        try:
+            fn(a, b, c)
+            return True
+        except RuntimeError:
+            return False
+    assert outcome(r1cs_constraint) == outcome(ref_constraint) == \
+        ((a * b - c) % SNARK_SCALAR_FIELD == 0)

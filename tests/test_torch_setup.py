@@ -101,9 +101,3 @@ def test_port_proof_verifies_under_both_verifiers(keys):
     assert not want.vk.verify(RefProof.from_json(tampered.to_json()))
     swapped = Proof(proof.C, proof.B, proof.A, proof.input)
     assert not got.vk.verify(swapped)
-
-
-def test_zk_keys_not_ported(keys):
-    _, cs, _, _ = keys
-    with pytest.raises(NotImplementedError):
-        generator(cs, rng=_seeded(), device='cpu', zk=True)
