@@ -77,9 +77,10 @@ Phases (any mismatch fails the run with a non-zero exit):
    'red' proof's, and each must pass vk.verify.
 7. the new entry points: ``python -m ethsnarks_tpu_torch.bench`` at
    BENCH_MSM_SIZE=16 in each of its four modes (each must print
-   correct=True), and the probe's main (``python -m
-   ethsnarks_tpu_torch.probe``), run in this process so its K7 and K7b
-   launches count.
+   correct=True), ``python -m ethsnarks_tpu_torch.bench_workloads`` (the
+   five BASELINE rows; exit 0, every row correct), and the probe's main
+   (``python -m ethsnarks_tpu_torch.probe``), run in this process so its
+   K7 and K7b launches count.
 8. the flagship at full size, on the data of ``python -m
    ethsnarks_tpu_torch.bench_merkle`` and through its functions:
    BatchMerkleMembership(29, 48) must have 48 x (29 x 733 + 1) =
@@ -92,6 +93,21 @@ Phases (any mismatch fails the run with a non-zero exit):
    accepted by the Verifier.sol bytecode twin (``evm_verifier``) and
    refused with the root changed.  Phase 6's circuit, key and context are
    freed first; the host's peak RSS is printed.
+9. the SHA-256 preimage (bench_workloads' sha256_preimage row):
+   BatchSha256(1, 512) of bytes(range(64)) must have 60,131 constraints
+   (domain 2^16); the witness (the batched SHA-256 trace on the card, which
+   asserts hashlib's digest), ``is_satisfied()``, the setup (both K4
+   instances), two 'red' proofs and one 'fused' and one 'generic' proof,
+   all equal; every proof must pass vk.verify with [digest_hi, digest_lo]
+   and fail it with digest_lo + 1; the Verifier.sol twin must accept the
+   'red' proof and refuse the changed one.  Every A, B and L scalar is a
+   bit: the skewed MSMs of the port at their harshest.
+10. the batched Poseidon hash: BatchPoseidonHash(1024, 2) must have
+   323,584 constraints (domain 2^19) on inputs uniform below r; the
+   witness (the batched Poseidon trace on the card), every digest equal
+   to the host poseidon, ``is_satisfied()``, the setup, the four proofs
+   as in phase 9, and vk.verify once each way (the 'red' proof accepted,
+   refused with one digest changed).
 
 Launch counts are reset just before and read just after each path.  The
 last lines are a JSON ``kernels`` record, the nvidia-smi line, and
@@ -112,7 +128,8 @@ import time
 import numpy as np
 import torch
 
-from ethsnarks_tpu_torch import bench, bench_merkle, bn254, probe
+from ethsnarks_tpu_torch import bench, bench_merkle, bench_workloads, bn254, \
+    probe
 from ethsnarks_tpu_torch.cost import FQ_MUL_IMAD, IMAD_PER_S, OP_IMAD, \
     bound_ms, horner_steps, latency_floor_ms, point_bytes
 from ethsnarks_tpu_torch.field import CURVE_ORDER, FIELD_MODULUS, \
@@ -120,13 +137,15 @@ from ethsnarks_tpu_torch.field import CURVE_ORDER, FIELD_MODULUS, \
 from ethsnarks_tpu_torch.gadgets import MiMCe7_gadget
 from ethsnarks_tpu_torch.groth16 import ProverContext, generator
 from ethsnarks_tpu_torch.mimc import mimc
-from ethsnarks_tpu_torch.models import BatchMerkleMembership
+from ethsnarks_tpu_torch.models import BatchMerkleMembership, \
+    BatchPoseidonHash, BatchSha256
 from ethsnarks_tpu_torch.ops import _build, curve, fold, int_probe, \
     kernels, msm, msm_dense, msm_scan
 from ethsnarks_tpu_torch.ops.batch_exp import BatchExp, C, N_WIN
 from ethsnarks_tpu_torch.ops.fp import Fq, Fr, words_to_h16, \
     ints_to_words_np, words_to_ints, h16_to_words
 from ethsnarks_tpu_torch.ops.ntt import NttDomain
+from ethsnarks_tpu_torch.poseidon import poseidon
 from ethsnarks_tpu_torch.qap import h_coefficients
 from ethsnarks_tpu_torch.r1cs import ConstraintSystem
 from ethsnarks_tpu_torch.serialization import read_pk_binary, \
@@ -145,6 +164,10 @@ FULL_LOG = 20                   # MSM points, transform domain, circuit size
 SCAN_PLAIN_LOG = 20             # K6's plain version is timed on 2^20 elements
 MERKLE_PROOFS = 48              # the flagship: 48 depth-29 proofs, m = 2^20
 MERKLE_DEPTH = bench_merkle.DEPTH
+SHA_MESSAGE = bench_workloads.SHA_MESSAGE
+SHA_CONSTRAINTS = 60131         # BatchSha256(1, 512), domain 2^16
+POSEIDON_INSTANCES = 1024       # 1,024 x 316 = 323,584 constraints
+POSEIDON_LOG = 19
 
 
 def log(*args):
@@ -1384,6 +1407,21 @@ def phase_entry_points():
         out[mode] = json.loads(lines[-1])
         log("  bench %-10s %.1f s: %s" % (mode, time.perf_counter() - t0,
                                           lines[-1]))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "ethsnarks_tpu_torch.bench_workloads"],
+        cwd=ROOT, capture_output=True, text=True, timeout=900)
+    rows = [json.loads(ln) for ln in proc.stdout.splitlines()
+            if ln.startswith('{"metric"')]
+    if proc.returncode != 0 or len(rows) != len(bench_workloads.WORKLOADS) \
+            or not all(r["correct"] for r in rows):
+        fail("bench_workloads: rc %d\n%s%s" % (
+            proc.returncode, proc.stdout[-3000:], proc.stderr[-3000:]))
+    log("  bench_workloads, %d rows, all correct, %.1f s:"
+        % (len(rows), time.perf_counter() - t0))
+    for row in rows:
+        log("    " + json.dumps(row))
+    out["workloads"] = rows
     kernels.reset_counts()
     probe.main()
     launches = launch_counts()
@@ -1402,6 +1440,80 @@ def host_rss_now_gb():
             if line.startswith("VmRSS:"):
                 return int(line.split()[1]) / 2 ** 20
     return float("nan")
+
+
+def prove_every_impl(kp, cs, what):
+    """Two 'red' proofs from one ProverContext on the setup's key and QAP
+    (equal JSON; K1 and K3 of both groups and nothing else), then one proof
+    each with msm_impl 'fused' and 'generic', each equal to the 'red'
+    proof.  -> (the four proofs, each run's seconds, routes and phases,
+    the launches of the 'red' pair and of each other design)."""
+    ctx = ProverContext(kp.pk, cs, DEV, qap=kp.qap)
+    kernels.reset_counts()
+    proofs, runs = [], {}
+    for rep in range(2):
+        t0 = time.perf_counter()
+        proofs.append(ctx.prove(cs.values))
+        dt = time.perf_counter() - t0
+        runs["red_%d" % rep] = {"seconds": dt, "routes": ctx.last_routes,
+                                "profile": ctx.last_profile}
+        log("  'red' proof %d: %.3f s; routes %s; phases %s" % (
+            rep, dt, ctx.last_routes, json.dumps(
+                {k: round(v, 4) for k, v in ctx.last_profile.items()})))
+    launches = {"red": launch_counts()}
+    check_red_launches(launches["red"], "%s: the 'red' proofs" % what)
+    log("  launches over the two 'red' proofs: %s" % json.dumps(
+        {k: v for k, v in launches["red"].items() if v}))
+    if proofs[0].to_json() != proofs[1].to_json():
+        fail("%s: two nozk proofs differ" % what)
+    for impl in ("fused", "generic"):
+        ctx_i = ProverContext(kp.pk, cs, DEV, qap=kp.qap, msm_impl=impl)
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        proof = ctx_i.prove(cs.values)
+        dt = time.perf_counter() - t0
+        launches[impl] = launch_counts()
+        if proof.to_json() != proofs[0].to_json():
+            fail("%s: the msm_impl=%r proof differs from the 'red' proof"
+                 % (what, impl))
+        proofs.append(proof)
+        runs[impl] = {"seconds": dt, "routes": ctx_i.last_routes,
+                      "profile": ctx_i.last_profile}
+        log("  msm_impl=%r: %.3f s, JSON equal to the 'red' proof; routes "
+            "%s; phases %s; launches %s" % (
+                impl, dt, ctx_i.last_routes, json.dumps(
+                    {k: round(v, 4) for k, v in ctx_i.last_profile.items()}),
+                json.dumps({k: v for k, v in launches[impl].items() if v})))
+    return proofs, runs, launches
+
+
+def checked_setup(cs, log_m, what):
+    """The port's setup of ``cs`` on the card with bench_merkle's seeded
+    rng: the domain must be 2^log_m and both K4 instances must launch.
+    -> (keypair, seconds, launches)."""
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    kp = generator(cs, rng=bench_merkle.seeded_rng(), device=DEV)
+    t_setup = time.perf_counter() - t0
+    launches = launch_counts()
+    if kp.qap.domain_size != 1 << log_m:
+        fail("%s: domain %d, not 2^%d" % (what, kp.qap.domain_size, log_m))
+    for k in kernels.SETUP:
+        if launches[k.name] == 0:
+            fail("%s: the setup did not launch %s" % (what, k.name))
+    log("  setup %.2f s (m = %d); phases %s; launches %s; host peak RSS "
+        "%.2f GB" % (t_setup, kp.qap.domain_size, json.dumps(
+            {k: round(v, 4) for k, v in kp.profile.items()}),
+            json.dumps({k: v for k, v in launches.items() if v}),
+            host_rss_gb()))
+    return kp, t_setup, launches
+
+
+def input_changed(proof, k):
+    """The proof with its public input k plus one."""
+    inputs = list(proof.input)
+    inputs[k] = (inputs[k] + 1) % SNARK_SCALAR_FIELD
+    return Proof(proof.A, proof.B, proof.C, inputs)
 
 
 def phase_merkle():
@@ -1441,54 +1553,8 @@ def phase_merkle():
         "is_satisfied() %.1f s" % (
             bench_merkle.N_LEAVES, t_tree, t_witness, model.trace_seconds,
             depth, n_proofs, t_sat))
-    kernels.reset_counts()
-    t0 = time.perf_counter()
-    kp = generator(cs, rng=bench_merkle.seeded_rng(), device=DEV)
-    t_setup = time.perf_counter() - t0
-    setup_launches = launch_counts()
-    for k in kernels.SETUP:
-        if setup_launches[k.name] == 0:
-            fail("the flagship's setup did not launch %s" % k.name)
-    log("  setup %.2f s (m = %d); phases %s; launches %s; host peak RSS "
-        "%.2f GB" % (t_setup, kp.qap.domain_size, json.dumps(
-            {k: round(v, 4) for k, v in kp.profile.items()}),
-            json.dumps({k: v for k, v in setup_launches.items() if v}),
-            host_rss_gb()))
-    ctx = ProverContext(kp.pk, cs, DEV, qap=kp.qap)
-    kernels.reset_counts()
-    proofs, runs = [], {}
-    for rep in range(2):
-        t0 = time.perf_counter()
-        proofs.append(ctx.prove(cs.values))
-        dt = time.perf_counter() - t0
-        runs["red_%d" % rep] = {"seconds": dt, "routes": ctx.last_routes,
-                                "profile": ctx.last_profile}
-        log("  'red' proof %d: %.3f s; routes %s; phases %s" % (
-            rep, dt, ctx.last_routes, json.dumps(
-                {k: round(v, 4) for k, v in ctx.last_profile.items()})))
-    red_launches = launch_counts()
-    check_red_launches(red_launches, "the flagship's 'red' proofs")
-    if proofs[0].to_json() != proofs[1].to_json():
-        fail("two nozk proofs of the flagship differ")
-    launches = {"red_x2": red_launches}
-    for impl in ("fused", "generic"):
-        ctx_i = ProverContext(kp.pk, cs, DEV, qap=kp.qap, msm_impl=impl)
-        kernels.reset_counts()
-        t0 = time.perf_counter()
-        proof = ctx_i.prove(cs.values)
-        dt = time.perf_counter() - t0
-        launches[impl] = launch_counts()
-        if proof.to_json() != proofs[0].to_json():
-            fail("msm_impl=%r: the flagship proof differs from the 'red' "
-                 "proof" % impl)
-        proofs.append(proof)
-        runs[impl] = {"seconds": dt, "routes": ctx_i.last_routes,
-                      "profile": ctx_i.last_profile}
-        log("  msm_impl=%r: %.3f s, JSON equal to the 'red' proof; routes "
-            "%s; phases %s; launches %s" % (
-                impl, dt, ctx_i.last_routes, json.dumps(
-                    {k: round(v, 4) for k, v in ctx_i.last_profile.items()}),
-                json.dumps({k: v for k, v in launches[impl].items() if v})))
+    kp, t_setup, setup_launches = checked_setup(cs, FULL_LOG, "the flagship")
+    proofs, runs, launches = prove_every_impl(kp, cs, "the flagship")
     t0 = time.perf_counter()
     for rep, proof in enumerate(proofs):
         if not kp.vk.verify(proof):
@@ -1497,7 +1563,8 @@ def phase_merkle():
         fail("the flagship proof with its root changed verifies")
     t_verify = time.perf_counter() - t0
     t0 = time.perf_counter()
-    accepted, refused = bench_merkle.evm_check(kp.vk, proofs[0])
+    accepted, refused = bench_merkle.evm_check(
+        kp.vk, proofs[0], bench_merkle.root_changed(proofs[0]))
     t_evm = time.perf_counter() - t0
     if not accepted:
         fail("the Verifier.sol twin refuses the flagship proof")
@@ -1515,6 +1582,139 @@ def phase_merkle():
             "setup_profile": kp.profile, "setup_launches": setup_launches,
             "proofs": runs, "prove_launches": launches,
             "verify_seconds": t_verify, "evm_seconds": t_evm,
+            "host_peak_rss_gb": host_rss_gb()}
+
+
+# ---------------------------------------------------------------- phase 9
+
+def phase_sha256():
+    """setup -> proofs of every msm_impl -> both verifiers on the SHA-256
+    preimage, BatchSha256(1, 512) of SHA_MESSAGE (bench_workloads'
+    sha256_preimage row): every witness value but the two public digest
+    halves is a bit."""
+    log("== phase 9: the SHA-256 preimage, BatchSha256(1, 512)")
+    t0 = time.perf_counter()
+    model = BatchSha256(1, 8 * len(SHA_MESSAGE), device=DEV)
+    cs = model.pb
+    t_build = time.perf_counter() - t0
+    if cs.num_constraints != SHA_CONSTRAINTS:
+        fail("BatchSha256(1, 512) has %d constraints, not %d"
+             % (cs.num_constraints, SHA_CONSTRAINTS))
+    t0 = time.perf_counter()
+    model.set_witness([SHA_MESSAGE])        # asserts hashlib's digest
+    t_witness = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if not cs.is_satisfied():
+        fail("the SHA-256 witness does not satisfy its constraints")
+    t_sat = time.perf_counter() - t0
+    log("  circuit: %d constraints, %d variables, built in %.1f s; witness "
+        "(the batched trace on the card) %.2f s; is_satisfied() %.2f s"
+        % (cs.num_constraints, cs.num_variables, t_build, t_witness, t_sat))
+    kp, t_setup, setup_launches = checked_setup(cs, 16, "the SHA-256 circuit")
+    proofs, runs, launches = prove_every_impl(kp, cs, "the SHA-256 circuit")
+    digest = list(model.digests()[0])
+    t0 = time.perf_counter()
+    for rep, proof in enumerate(proofs):
+        if proof.input != digest:
+            fail("SHA-256 proof %d has inputs %s, not the digest halves"
+                 % (rep, proof.input))
+        if not kp.vk.verify(proof):
+            fail("SHA-256 proof %d does not verify" % rep)
+    bad = input_changed(proofs[0], 1)
+    if kp.vk.verify(bad):
+        fail("the SHA-256 proof with digest_lo + 1 verifies")
+    t_verify = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    accepted, refused = bench_merkle.evm_check(kp.vk, proofs[0], bad)
+    t_evm = time.perf_counter() - t0
+    if not accepted:
+        fail("the Verifier.sol twin refuses the SHA-256 proof")
+    if not refused:
+        fail("the Verifier.sol twin accepts the SHA-256 proof with "
+             "digest_lo + 1")
+    log("  all %d proofs pass vk.verify with [digest_hi, digest_lo], the "
+        "one with digest_lo + 1 fails it (%.2f s); the Verifier.sol twin "
+        "accepts the 'red' proof and refuses the changed one (%.2f s); "
+        "host peak RSS %.2f GB" % (len(proofs), t_verify, t_evm,
+                                   host_rss_gb()))
+    return {"constraints": cs.num_constraints, "m": kp.qap.domain_size,
+            "build_seconds": t_build, "witness_seconds": t_witness,
+            "is_satisfied_seconds": t_sat, "setup_seconds": t_setup,
+            "setup_profile": kp.profile, "setup_launches": setup_launches,
+            "proofs": runs, "prove_launches": launches,
+            "verify_seconds": t_verify, "evm_seconds": t_evm,
+            "host_peak_rss_gb": host_rss_gb()}
+
+
+# ---------------------------------------------------------------- phase 10
+
+def poseidon_inputs(n, rng):
+    """n pairs of field elements uniform below r (254-bit draws, rejected
+    at r or above)."""
+    vals = []
+    while len(vals) < 2 * n:
+        v = int.from_bytes(rng.bytes(32), "little") >> 2
+        if v < SNARK_SCALAR_FIELD:
+            vals.append(v)
+    return [(vals[2 * i], vals[2 * i + 1]) for i in range(n)]
+
+
+def phase_poseidon():
+    """setup -> proofs of every msm_impl -> vk.verify on the batched
+    Poseidon hash, BatchPoseidonHash(POSEIDON_INSTANCES, 2): full-field
+    witness values at m = 2^19.  Its public inputs are the 1,024 digests,
+    so vk.verify (a host scalar product an input) runs once each way and
+    the other proofs are held to the 'red' one by JSON."""
+    n = POSEIDON_INSTANCES
+    log("== phase 10: the batched Poseidon hash, BatchPoseidonHash(%d, 2)"
+        % n)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = BatchPoseidonHash(n, 2, device=DEV)
+    cs = model.pb
+    t_build = time.perf_counter() - t0
+    if cs.num_constraints != n * 316:
+        fail("BatchPoseidonHash(%d, 2) has %d constraints, not %d"
+             % (n, cs.num_constraints, n * 316))
+    log("  circuit: %d constraints, %d variables, built in %.1f s; host RSS"
+        " %.2f GB" % (cs.num_constraints, cs.num_variables, t_build,
+                      host_rss_now_gb()))
+    inputs = poseidon_inputs(n, np.random.default_rng(SEED))
+    t0 = time.perf_counter()
+    model.set_witness(inputs)
+    t_witness = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if model.digests() != [poseidon(list(pair)) for pair in inputs]:
+        fail("a batched Poseidon digest differs from the host poseidon")
+    t_host = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if not cs.is_satisfied():
+        fail("the Poseidon witness does not satisfy its constraints")
+    t_sat = time.perf_counter() - t0
+    log("  witness (the batched trace on the card, %d instances) %.2f s; "
+        "all %d digests equal the host poseidon (%.1f s); is_satisfied() "
+        "%.1f s" % (n, t_witness, n, t_host, t_sat))
+    kp, t_setup, setup_launches = checked_setup(
+        cs, POSEIDON_LOG, "the Poseidon circuit")
+    proofs, runs, launches = prove_every_impl(kp, cs, "the Poseidon circuit")
+    t0 = time.perf_counter()
+    if proofs[0].input != model.digests():
+        fail("the Poseidon proof's inputs are not the digests")
+    if not kp.vk.verify(proofs[0]):
+        fail("the Poseidon 'red' proof does not verify")
+    if kp.vk.verify(input_changed(proofs[0], n // 2)):
+        fail("the Poseidon proof with one digest changed verifies")
+    t_verify = time.perf_counter() - t0
+    log("  the 'red' proof passes vk.verify and fails it with digest %d "
+        "changed (%.1f s for both); host peak RSS %.2f GB"
+        % (n // 2, t_verify, host_rss_gb()))
+    return {"constraints": cs.num_constraints, "m": kp.qap.domain_size,
+            "build_seconds": t_build, "witness_seconds": t_witness,
+            "host_digest_seconds": t_host, "is_satisfied_seconds": t_sat,
+            "setup_seconds": t_setup, "setup_profile": kp.profile,
+            "setup_launches": setup_launches, "proofs": runs,
+            "prove_launches": launches, "verify_seconds": t_verify,
             "host_peak_rss_gb": host_rss_gb()}
 
 
@@ -1595,20 +1795,26 @@ def main():
     card_state("after phase 6")
     entry = phase_entry_points()
     merkle = phase_merkle()
+    sha = phase_sha256()
+    pos = phase_poseidon()
     card_state("at the end")
     log("  full-path results: %s" % json.dumps(
         dict(path, fixture_setup=fixture_setup, fixture_zk=fixture_zk),
         default=str))
     log("  flagship results: %s" % json.dumps(merkle, default=str))
+    log("  SHA-256 results: %s" % json.dumps(sha, default=str))
+    log("  Poseidon results: %s" % json.dumps(pos, default=str))
     # launches by path: the 2^20 setups (K4), their two 'red' proofs (K1,
     # K3), their 'fused' and 'generic' proofs and the 5b MSMs (K1-K3, K5,
     # K6), and the probe (K7, K7b); "launches" is their sum
     by_path = {"setup_2^20": path["setup_launches"],
                "prove_2^20_red_x2": path["prove_launches"],
-               "probe": entry["probe_launches"],
-               "setup_2^20_merkle": merkle["setup_launches"]}
-    for impl, counts in merkle["prove_launches"].items():
-        by_path["prove_2^20_merkle_" + impl] = counts
+               "probe": entry["probe_launches"]}
+    for tag, r in (("2^20_merkle", merkle), ("2^16_sha256", sha),
+                   ("2^19_poseidon", pos)):
+        by_path["setup_" + tag] = r["setup_launches"]
+        for impl, counts in r["prove_launches"].items():
+            by_path["prove_%s_%s" % (tag, impl)] = counts
     for impl, r in path["msm_impls"].items():
         by_path["prove_2^20_" + impl] = r["launches"]
     for tag in ("msm_g1", "msm_g2"):

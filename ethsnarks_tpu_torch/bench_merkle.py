@@ -57,11 +57,11 @@ def root_changed(proof):
                  + list(proof.input[1:]))
 
 
-def evm_check(vk, proof):
-    """(accepted, refused with the root changed) on the Verifier.sol
+def evm_check(vk, proof, tampered):
+    """(``proof`` accepted, ``tampered`` refused) on the Verifier.sol
     bytecode twin; a revert counts as a refusal."""
     try:
-        refused = not evm_verify(vk, root_changed(proof))
+        refused = not evm_verify(vk, tampered)
     except EvmError:
         refused = True
     return evm_verify(vk, proof), refused
@@ -99,7 +99,8 @@ def run(n_proofs=48, reps=2, device=None, log=print):
     t0 = time.perf_counter()
     verified = kp.vk.verify(proof)
     tampered_refused = not kp.vk.verify(root_changed(proof))
-    evm_verified, evm_refused = evm_check(kp.vk, proof)
+    evm_verified, evm_refused = evm_check(kp.vk, proof,
+                                           root_changed(proof))
     secs['verify'] = time.perf_counter() - t0
     log("vk.verify %s, root changed refused %s; Verifier.sol twin %s, "
         "root changed refused %s (%.1f s)" % (

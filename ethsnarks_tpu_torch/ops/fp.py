@@ -208,6 +208,40 @@ class MontField(object):
     def square(self, a):
         return self.mul(a, a)
 
+    def pow_const(self, a, exponent):
+        """a^exponent (Montgomery in, Montgomery out) for a python-int
+        exponent >= 1: left-to-right square and multiply."""
+        exponent = int(exponent)
+        if exponent < 1:
+            raise ValueError("exponent %d: at least 1" % exponent)
+        acc = a
+        for bit in bin(exponent)[3:]:
+            acc = self.mul(acc, acc)
+            if bit == '1':
+                acc = self.mul(acc, a)
+        return acc
+
+    def sum_axis(self, a, axis):
+        """Modular sum of h16 ``a`` along batch axis ``axis`` (counted in
+        ``a``'s own indices, so >= 1).  The digit sums of k terms stay below
+        k 2^16; carried into 18 rows they hold the value below k p, from
+        which 2^j p is subtracted where it fits, j descending."""
+        k = a.shape[axis]
+        s = a.sum(dim=axis)
+        shape = s.shape[1:]
+        flat = s.reshape(NH, -1)
+        t = torch.zeros((NH + 2, flat.shape[1]), dtype=torch.int64,
+                        device=a.device)
+        t[:NH] = flat
+        _ripple(t)
+        for j in range(max(0, (k - 1).bit_length() - 1), -1, -1):
+            c = torch.tensor([((self.modulus << j) >> (HB * i)) & MASK
+                              for i in range(NH + 2)],
+                             dtype=torch.int64, device=a.device)[:, None]
+            d = _ripple(t - c)
+            t = torch.where(d[-1] < 0, t, d)
+        return t[:NH].reshape((NH,) + tuple(shape))
+
     def to_mont(self, a):
         return self.mul(a, self.const(self.r2_mod, a.device))
 

@@ -11,10 +11,11 @@ the tensors' device, each on the whole batch (the reference's
 
 import torch
 
+from .. import resolve_device
 from ..field import SNARK_SCALAR_FIELD
 from ..mimc.permutation import constants_list, DEFAULT_EXPONENT, \
     DEFAULT_ROUNDS, DEFAULT_SEED
-from .fp import Fr
+from .fp import NH, Fr
 
 _constants = {}
 
@@ -93,3 +94,15 @@ def mimc_mp_witness_device(left, right, iv, seed=DEFAULT_SEED,
     aux = torch.cat([tr1.reshape(shape), mp1[:, None],
                      tr2.reshape(shape), out[:, None]], dim=1)
     return out, aux
+
+
+def mimc_hash_device(msgs, k=0, device=None):
+    """Miyaguchi-Preneel hashes of a batch of messages (tuples of ints, each
+    of one length) under one int key, by :func:`mimc_hash_batch` on
+    ``device`` (None: the card) -> a list of ints."""
+    dev = resolve_device(device)
+    n, width = len(msgs), len(msgs[0])
+    xs = Fr.ints_to_h16([m[j] for j in range(width) for m in msgs], dev,
+                        mont=True).reshape(NH, width, n)
+    return Fr.h16_to_ints(mimc_hash_batch(xs, Fr.const_mont(k, dev)),
+                          mont=True)

@@ -333,3 +333,35 @@ def test_mimc_trace_on_card_matches_cpu(card):
         assert torch.equal(out.cpu(), want_out)
         assert torch.equal(aux.cpu(), want_aux)
         left = want_out
+
+
+def test_sha256_trace_on_card_matches_cpu(card):
+    """The batched SHA-256 trace of 16 random 96-byte messages (two
+    compressions each) on the card, word for word its CPU run."""
+    from ethsnarks_tpu_torch.models.sha256_batch import _padded_words
+    from ethsnarks_tpu_torch.ops.sha256_ops import sha256_witness_trace
+    rng = np.random.default_rng(96)
+    blocks = torch.from_numpy(np.moveaxis(np.stack(
+        [_padded_words(rng.bytes(96), 768) for _ in range(16)]), 0, 2).copy())
+    final, ops = sha256_witness_trace(blocks.to(card))
+    want_final, want_ops = sha256_witness_trace(blocks)
+    assert ops.is_cuda and ops.shape == (2, 1264, 16)
+    assert torch.equal(final.cpu(), want_final)
+    assert torch.equal(ops.cpu(), want_ops)
+
+
+def test_poseidon_witness_on_card_matches_cpu(card):
+    """The batched Poseidon witness trace of 64 random full-width states on
+    the card, word for word its CPU run (the final state and the 105 sboxes'
+    x^2, x^4, x^5)."""
+    from ethsnarks_tpu_torch.ops.fp import Fr
+    from ethsnarks_tpu_torch.ops.poseidon_ops import poseidon_witness_device
+    rng = np.random.default_rng(6)
+    state = Fr.ints_to_h16(
+        [int.from_bytes(rng.bytes(32), 'little') % SNARK_SCALAR_FIELD
+         for _ in range(6 * 64)], 'cpu', mont=True).reshape(16, 6, 64)
+    final, aux = poseidon_witness_device(state.to(card))
+    want_final, want_aux = poseidon_witness_device(state)
+    assert aux.is_cuda and aux.shape == (105, 3, 16, 64)
+    assert torch.equal(final.cpu(), want_final)
+    assert torch.equal(aux.cpu(), want_aux)

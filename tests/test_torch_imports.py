@@ -41,12 +41,31 @@ MERKLE_AND_ZK = [
 ]
 
 
+# the hash gadgets, their batched traces, models and workloads
+HASH_CIRCUITS = [
+    "ethsnarks_tpu_torch/bench_workloads.py",
+    "ethsnarks_tpu_torch/gadgets/arith.py",
+    "ethsnarks_tpu_torch/gadgets/basics.py",
+    "ethsnarks_tpu_torch/gadgets/poseidon.py",
+    "ethsnarks_tpu_torch/gadgets/sha256.py",
+    "ethsnarks_tpu_torch/models/poseidon_batch.py",
+    "ethsnarks_tpu_torch/models/sha256_batch.py",
+    "ethsnarks_tpu_torch/ops/poseidon_ops.py",
+    "ethsnarks_tpu_torch/ops/sha256_ops.py",
+]
+
+
 def test_port_has_modules():
     assert len(_sources()) >= 15
 
 
 @pytest.mark.parametrize("relpath", MERKLE_AND_ZK)
 def test_merkle_and_zk_modules_present(relpath):
+    assert relpath in _sources()
+
+
+@pytest.mark.parametrize("relpath", HASH_CIRCUITS)
+def test_hash_circuit_modules_present(relpath):
     assert relpath in _sources()
 
 

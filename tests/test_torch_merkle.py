@@ -30,7 +30,8 @@ from ethsnarks_tpu_torch.ops.mimc import mimc_hash_batch, \
     mimc_mp_witness_device, mimc_permutation, round_constants_mont
 from ethsnarks_tpu_torch.poseidon import poseidon
 
-from torch_port_helpers import rand_ints, torch_threads  # noqa: F401
+from torch_port_helpers import rand_ints, same_board, \
+    torch_threads  # noqa: F401
 
 P = SNARK_SCALAR_FIELD
 
@@ -88,13 +89,7 @@ def test_merkle_tree_matches_reference(hasher):
 
 
 def _same_board(got, want):
-    a, b = want.to_coo(), got.to_coo()
-    for name in 'abc':
-        assert a[name][0].tolist() == b[name][0].tolist()
-        assert a[name][1].tolist() == b[name][1].tolist()
-        assert a[name][2] == b[name][2]
-    assert got.values == want.values
-    assert got.annotations == want.annotations
+    same_board(got, want)
     assert got.is_satisfied()
 
 

@@ -55,3 +55,16 @@ def carry_edge_values(modulus, rng):
         vals.append((int.from_bytes(rng.bytes(32), 'little')
                      | ((1 << (32 * k)) - 1)) % modulus)
     return vals
+
+
+def same_board(got, want):
+    """Two constraint systems are equal: constraint triples, witness
+    values, annotations and the public-input count."""
+    a, b = want.to_coo(), got.to_coo()
+    for name in 'abc':
+        assert a[name][0].tolist() == b[name][0].tolist()
+        assert a[name][1].tolist() == b[name][1].tolist()
+        assert a[name][2] == b[name][2]
+    assert got.values == want.values
+    assert got.annotations == want.annotations
+    assert got.num_inputs == want.num_inputs
