@@ -78,7 +78,8 @@ Phases (any mismatch fails the run with a non-zero exit):
 7. the new entry points: ``python -m ethsnarks_tpu_torch.bench`` at
    BENCH_MSM_SIZE=16 in each of its four modes (each must print
    correct=True), ``python -m ethsnarks_tpu_torch.bench_workloads`` (the
-   five BASELINE rows; exit 0, every row correct), and the probe's main
+   six BASELINE rows, eddsa16k's 16,384 signatures included; exit 0,
+   every row correct), and the probe's main
    (``python -m ethsnarks_tpu_torch.probe``), run in this process so its
    K7 and K7b launches count.
 8. the flagship at full size, on the data of ``python -m
@@ -108,6 +109,16 @@ Phases (any mismatch fails the run with a non-zero exit):
    to the host poseidon, ``is_satisfied()``, the setup, the four proofs
    as in phase 9, and vk.verify once each way (the 'red' proof accepted,
    refused with one digest changed).
+11. the EdDSA verify circuit: EdDSAVerify(256, PureEdDSA_gadget) must have
+   8,050 constraints (domain 2^13); it takes the first signature of
+   bench_workloads' eddsa16k seed (a 32-byte message); the witness (host
+   curve), ``is_satisfied()``, the setup, two proofs from the default
+   ('auto') context and one each with msm_impl 'red', 'fused' and
+   'generic', all equal; vk.verify and the Verifier.sol twin must accept
+   [A.x, A.y] and refuse the proof with the next signature's key.  Then
+   the batched verify ops on that seed's first 4 signatures: the affine
+   lhs = s B, the Pedersen hash's x and rhs = R + t A, read back with
+   ``device_to_points``, must equal the host's, and every lane accept.
 
 Launch counts are reset just before and read just after each path.  The
 last lines are a JSON ``kernels`` record, the nvidia-smi line, and
@@ -137,10 +148,12 @@ from ethsnarks_tpu_torch.field import CURVE_ORDER, FIELD_MODULUS, \
 from ethsnarks_tpu_torch.gadgets import MiMCe7_gadget
 from ethsnarks_tpu_torch.groth16 import ProverContext, generator
 from ethsnarks_tpu_torch.mimc import mimc
+from ethsnarks_tpu_torch.eddsa import PureEdDSA
+from ethsnarks_tpu_torch.gadgets.jubjub import PureEdDSA_gadget
 from ethsnarks_tpu_torch.models import BatchMerkleMembership, \
-    BatchPoseidonHash, BatchSha256
-from ethsnarks_tpu_torch.ops import _build, curve, fold, int_probe, \
-    kernels, msm, msm_dense, msm_scan
+    BatchPoseidonHash, BatchSha256, EdDSAVerify
+from ethsnarks_tpu_torch.ops import _build, curve, eddsa_ops, fold, \
+    int_probe, jubjub_ops, kernels, msm, msm_dense, msm_scan
 from ethsnarks_tpu_torch.ops.batch_exp import BatchExp, C, N_WIN
 from ethsnarks_tpu_torch.ops.fp import Fq, Fr, words_to_h16, \
     ints_to_words_np, words_to_ints, h16_to_words
@@ -168,6 +181,10 @@ SHA_MESSAGE = bench_workloads.SHA_MESSAGE
 SHA_CONSTRAINTS = 60131         # BatchSha256(1, 512), domain 2^16
 POSEIDON_INSTANCES = 1024       # 1,024 x 316 = 323,584 constraints
 POSEIDON_LOG = 19
+EDDSA_MSG_BITS = 256            # EdDSAVerify(256): 8,050 constraints
+EDDSA_CONSTRAINTS = 8050
+EDDSA_LOG = 13
+EDDSA_LANES = 4                 # the batched verify's intermediates
 
 
 def log(*args):
@@ -1442,12 +1459,13 @@ def host_rss_now_gb():
     return float("nan")
 
 
-def prove_every_impl(kp, cs, what):
-    """Two 'red' proofs from one ProverContext on the setup's key and QAP
-    (equal JSON; K1 and K3 of both groups and nothing else), then one proof
-    each with msm_impl 'fused' and 'generic', each equal to the 'red'
-    proof.  -> (the four proofs, each run's seconds, routes and phases,
-    the launches of the 'red' pair and of each other design)."""
+def prove_every_impl(kp, cs, what, others=("fused", "generic")):
+    """Two proofs from one ProverContext on the setup's key and QAP with
+    the default msm_impl 'auto', which takes the red MSM (equal JSON; K1
+    and K3 of both groups and nothing else), then one proof each with the
+    msm_impl of ``others``, each equal to the first.  -> (the proofs, each
+    run's seconds, routes and phases, the launches of the 'auto' pair and
+    of each other design)."""
     ctx = ProverContext(kp.pk, cs, DEV, qap=kp.qap)
     kernels.reset_counts()
     proofs, runs = [], {}
@@ -1455,18 +1473,18 @@ def prove_every_impl(kp, cs, what):
         t0 = time.perf_counter()
         proofs.append(ctx.prove(cs.values))
         dt = time.perf_counter() - t0
-        runs["red_%d" % rep] = {"seconds": dt, "routes": ctx.last_routes,
+        runs["auto_%d" % rep] = {"seconds": dt, "routes": ctx.last_routes,
                                 "profile": ctx.last_profile}
-        log("  'red' proof %d: %.3f s; routes %s; phases %s" % (
+        log("  'auto' proof %d: %.3f s; routes %s; phases %s" % (
             rep, dt, ctx.last_routes, json.dumps(
                 {k: round(v, 4) for k, v in ctx.last_profile.items()})))
-    launches = {"red": launch_counts()}
-    check_red_launches(launches["red"], "%s: the 'red' proofs" % what)
-    log("  launches over the two 'red' proofs: %s" % json.dumps(
-        {k: v for k, v in launches["red"].items() if v}))
+    launches = {"auto": launch_counts()}
+    check_red_launches(launches["auto"], "%s: the 'auto' proofs" % what)
+    log("  launches over the two 'auto' proofs: %s" % json.dumps(
+        {k: v for k, v in launches["auto"].items() if v}))
     if proofs[0].to_json() != proofs[1].to_json():
         fail("%s: two nozk proofs differ" % what)
-    for impl in ("fused", "generic"):
+    for impl in others:
         ctx_i = ProverContext(kp.pk, cs, DEV, qap=kp.qap, msm_impl=impl)
         kernels.reset_counts()
         t0 = time.perf_counter()
@@ -1474,12 +1492,12 @@ def prove_every_impl(kp, cs, what):
         dt = time.perf_counter() - t0
         launches[impl] = launch_counts()
         if proof.to_json() != proofs[0].to_json():
-            fail("%s: the msm_impl=%r proof differs from the 'red' proof"
+            fail("%s: the msm_impl=%r proof differs from the 'auto' proof"
                  % (what, impl))
         proofs.append(proof)
         runs[impl] = {"seconds": dt, "routes": ctx_i.last_routes,
                       "profile": ctx_i.last_profile}
-        log("  msm_impl=%r: %.3f s, JSON equal to the 'red' proof; routes "
+        log("  msm_impl=%r: %.3f s, JSON equal to the 'auto' proof; routes "
             "%s; phases %s; launches %s" % (
                 impl, dt, ctx_i.last_routes, json.dumps(
                     {k: round(v, 4) for k, v in ctx_i.last_profile.items()}),
@@ -1718,6 +1736,104 @@ def phase_poseidon():
             "host_peak_rss_gb": host_rss_gb()}
 
 
+# ---------------------------------------------------------------- phase 11
+
+def other_key(proof, A):
+    """The proof with its public inputs replaced by the key A."""
+    return Proof(proof.A, proof.B, proof.C, [A.x.n, A.y.n])
+
+
+def phase_eddsa():
+    """setup -> proofs of every msm_impl -> both verifiers on the EdDSA
+    verify circuit, EdDSAVerify(256, PureEdDSA_gadget), on the first
+    signature of bench_workloads' eddsa16k seed; then the batched verify's
+    intermediates on that seed's first EDDSA_LANES signatures."""
+    log("== phase 11: the EdDSA verify circuit, EdDSAVerify(%d, "
+        "PureEdDSA_gadget)" % EDDSA_MSG_BITS)
+    t0 = time.perf_counter()
+    sigs = bench_workloads.eddsa_signatures(EDDSA_LANES)
+    t_sign = time.perf_counter() - t0
+    A, sig, msg = sigs[0]
+    t0 = time.perf_counter()
+    model = EdDSAVerify(EDDSA_MSG_BITS, PureEdDSA_gadget)
+    cs = model.pb
+    t_build = time.perf_counter() - t0
+    if cs.num_constraints != EDDSA_CONSTRAINTS:
+        fail("EdDSAVerify(%d) has %d constraints, not %d" % (
+            EDDSA_MSG_BITS, cs.num_constraints, EDDSA_CONSTRAINTS))
+    t0 = time.perf_counter()
+    model.set_witness(A, sig, msg, require_satisfied=False)
+    t_witness = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if not cs.is_satisfied():
+        fail("the EdDSA witness does not satisfy its constraints")
+    t_sat = time.perf_counter() - t0
+    log("  %d signatures signed on the host in %.2f s; circuit: %d "
+        "constraints, %d variables, built in %.2f s; witness (host curve) "
+        "%.2f s; is_satisfied() %.2f s" % (
+            len(sigs), t_sign, cs.num_constraints, cs.num_variables,
+            t_build, t_witness, t_sat))
+    kp, t_setup, setup_launches = checked_setup(
+        cs, EDDSA_LOG, "the EdDSA circuit")
+    proofs, runs, launches = prove_every_impl(
+        kp, cs, "the EdDSA circuit", others=("red", "fused", "generic"))
+    t0 = time.perf_counter()
+    for rep, proof in enumerate(proofs):
+        if proof.input != [A.x.n, A.y.n]:
+            fail("EdDSA proof %d has inputs %s, not [A.x, A.y]"
+                 % (rep, proof.input))
+        if not kp.vk.verify(proof):
+            fail("EdDSA proof %d does not verify" % rep)
+    bad = other_key(proofs[0], sigs[1][0])
+    if kp.vk.verify(bad):
+        fail("the EdDSA proof verifies with another key's A")
+    t_verify = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    accepted, refused = bench_merkle.evm_check(kp.vk, proofs[0], bad)
+    t_evm = time.perf_counter() - t0
+    if not accepted:
+        fail("the Verifier.sol twin refuses the EdDSA proof")
+    if not refused:
+        fail("the Verifier.sol twin accepts the EdDSA proof with another "
+             "key's A")
+    log("  all %d proofs pass vk.verify with [A.x, A.y], the one with the "
+        "next signature's key fails it (%.2f s); the Verifier.sol twin "
+        "accepts the 'red' proof and refuses the changed one (%.2f s)"
+        % (len(proofs), t_verify, t_evm))
+
+    As, lane_sigs, msgs = bench_workloads.eddsa_columns(sigs)
+    inputs = eddsa_ops.prepare(As, lane_sigs, msgs, DEV)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lhs, hash_pt, rhs = eddsa_ops.eddsa_verify_parts(*inputs)
+    mask = jubjub_ops.etec_equal(lhs, rhs).cpu().tolist()
+    t_parts = time.perf_counter() - t0
+    got = [jubjub_ops.device_to_points(p) for p in (lhs, hash_pt, rhs)]
+    base = PureEdDSA.B()
+    for i, (Ai, (R, s), m) in enumerate(sigs):
+        t = PureEdDSA.hash_public(R, Ai, m)
+        if got[0][i] != base * s:
+            fail("EdDSA lane %d: lhs differs from the host's s B" % i)
+        if got[1][i].x.n != t:
+            fail("EdDSA lane %d: the Pedersen hash's x differs from the "
+                 "host's" % i)
+        if got[2][i] != R + Ai * t:
+            fail("EdDSA lane %d: rhs differs from the host's R + t A" % i)
+    if mask != [True] * len(sigs):
+        fail("the batched verify refuses a valid lane: %s" % mask)
+    log("  batched verify of %d lanes on the card %.2f s: lhs, the hash's "
+        "x and rhs equal the host's on every lane, every lane accepts"
+        % (len(sigs), t_parts))
+    return {"constraints": cs.num_constraints, "m": kp.qap.domain_size,
+            "sign_seconds": t_sign, "build_seconds": t_build,
+            "witness_seconds": t_witness, "is_satisfied_seconds": t_sat,
+            "setup_seconds": t_setup, "setup_profile": kp.profile,
+            "setup_launches": setup_launches, "proofs": runs,
+            "prove_launches": launches, "verify_seconds": t_verify,
+            "evm_seconds": t_evm, "batch_lanes": len(sigs),
+            "batch_seconds": t_parts, "host_peak_rss_gb": host_rss_gb()}
+
+
 # ---------------------------------------------------------------- main
 
 def main():
@@ -1797,6 +1913,7 @@ def main():
     merkle = phase_merkle()
     sha = phase_sha256()
     pos = phase_poseidon()
+    ed = phase_eddsa()
     card_state("at the end")
     log("  full-path results: %s" % json.dumps(
         dict(path, fixture_setup=fixture_setup, fixture_zk=fixture_zk),
@@ -1804,6 +1921,7 @@ def main():
     log("  flagship results: %s" % json.dumps(merkle, default=str))
     log("  SHA-256 results: %s" % json.dumps(sha, default=str))
     log("  Poseidon results: %s" % json.dumps(pos, default=str))
+    log("  EdDSA results: %s" % json.dumps(ed, default=str))
     # launches by path: the 2^20 setups (K4), their two 'red' proofs (K1,
     # K3), their 'fused' and 'generic' proofs and the 5b MSMs (K1-K3, K5,
     # K6), and the probe (K7, K7b); "launches" is their sum
@@ -1811,7 +1929,7 @@ def main():
                "prove_2^20_red_x2": path["prove_launches"],
                "probe": entry["probe_launches"]}
     for tag, r in (("2^20_merkle", merkle), ("2^16_sha256", sha),
-                   ("2^19_poseidon", pos)):
+                   ("2^19_poseidon", pos), ("2^13_eddsa", ed)):
         by_path["setup_" + tag] = r["setup_launches"]
         for impl, counts in r["prove_launches"].items():
             by_path["prove_%s_%s" % (tag, impl)] = counts

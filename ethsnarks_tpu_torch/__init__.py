@@ -2,11 +2,15 @@
 
 The JAX package ``ethsnarks_tpu`` is the reference; this package imports
 nothing of it (nor JAX) and keeps its own copies of what it needs.  The
-paths are the nozk setup (:func:`groth16.generator`: QAP, host instance
-map, every query as one fixed-base batch multiplication on a hand-written
-Hopper kernel) and the nozk prover (:class:`groth16.ProverContext`:
-witness map, window digits, four Pippenger MSMs on hand-written Hopper
-kernels, host finalisation); the kernels are in ``csrc/``.
+paths are the setup (:func:`groth16.generator`, nozk or with
+``zk=True`` the zk key: QAP, host instance map, every query as one
+fixed-base batch multiplication on a hand-written Hopper kernel) and the
+prover (:class:`groth16.ProverContext`, nozk or blinded with r and s:
+witness map, window digits, the Pippenger MSMs on hand-written Hopper
+kernels, host finalisation); the kernels are in ``csrc/``.  The circuit
+library (``gadgets``, ``models``) with its batched witness traces
+(``ops/mimc.py``, ``ops/sha256_ops.py``, ``ops/poseidon_ops.py``) feeds
+them; ``ops/eddsa_ops.py`` verifies EdDSA signatures in batches.
 
 Entry points take ``device=None``, which means the CUDA card.  Without one
 they raise: nothing drops to the CPU unless the caller passes

@@ -365,3 +365,36 @@ def test_poseidon_witness_on_card_matches_cpu(card):
     assert aux.is_cuda and aux.shape == (105, 3, 16, 64)
     assert torch.equal(final.cpu(), want_final)
     assert torch.equal(aux.cpu(), want_aux)
+
+
+def test_eddsa_verify_batch_on_card(card):
+    """eddsa_verify_batch of 64 signatures on the card (the eddsa16k seed's
+    first 16, tiled four times) with lanes tampered as the eddsa16k row
+    tampers them, lane for lane the host verify."""
+    from ethsnarks_tpu_torch.bench_workloads import eddsa_signatures, \
+        eddsa_tampered, eddsa_columns
+    from ethsnarks_tpu_torch.eddsa import PureEdDSA
+    from ethsnarks_tpu_torch.ops.eddsa_ops import eddsa_verify_batch
+    bad, want = eddsa_tampered(eddsa_signatures(16) * 4)
+    got = eddsa_verify_batch(*eddsa_columns(bad))
+    assert got == want
+    assert got == [PureEdDSA.verify(*x) for x in bad]
+    assert want.count(False) == 3
+
+
+def test_eddsa_verify_circuit_proof_on_card(card):
+    """EdDSAVerify(256) on the eddsa16k seed's first signature: setup and
+    a proof on the card, vk.verify accepting [A.x, A.y] and refusing the
+    next signature's key."""
+    from ethsnarks_tpu_torch.bench_merkle import seeded_rng
+    from ethsnarks_tpu_torch.bench_workloads import eddsa_signatures
+    from ethsnarks_tpu_torch.models import EdDSAVerify
+    from ethsnarks_tpu_torch.verifier import Proof
+    sigs = eddsa_signatures(2)
+    model = EdDSAVerify(256).set_witness(*sigs[0])
+    proof, kp, _ = model.prove(device=card, rng=seeded_rng())
+    A, other = sigs[0][0], sigs[1][0]
+    assert proof.input == [A.x.n, A.y.n]
+    assert kp.vk.verify(proof)
+    assert not kp.vk.verify(Proof(proof.A, proof.B, proof.C,
+                                  [other.x.n, other.y.n]))

@@ -55,6 +55,21 @@ HASH_CIRCUITS = [
 ]
 
 
+# the JubJub half of the circuit library: host curve, hashes, signatures,
+# gadgets, batched ops and the verify circuit
+JUBJUB = [
+    "ethsnarks_tpu_torch/eddsa.py",
+    "ethsnarks_tpu_torch/field.py",
+    "ethsnarks_tpu_torch/gadgets/jubjub.py",
+    "ethsnarks_tpu_torch/jubjub.py",
+    "ethsnarks_tpu_torch/models/eddsa_verify.py",
+    "ethsnarks_tpu_torch/numbertheory.py",
+    "ethsnarks_tpu_torch/ops/eddsa_ops.py",
+    "ethsnarks_tpu_torch/ops/jubjub_ops.py",
+    "ethsnarks_tpu_torch/pedersen.py",
+]
+
+
 def test_port_has_modules():
     assert len(_sources()) >= 15
 
@@ -66,6 +81,11 @@ def test_merkle_and_zk_modules_present(relpath):
 
 @pytest.mark.parametrize("relpath", HASH_CIRCUITS)
 def test_hash_circuit_modules_present(relpath):
+    assert relpath in _sources()
+
+
+@pytest.mark.parametrize("relpath", JUBJUB)
+def test_jubjub_modules_present(relpath):
     assert relpath in _sources()
 
 

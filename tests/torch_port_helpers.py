@@ -68,3 +68,22 @@ def same_board(got, want):
     assert got.values == want.values
     assert got.annotations == want.annotations
     assert got.num_inputs == want.num_inputs
+
+
+def port_jubjub(obj):
+    """A JAX-package host JubJub object (``Point``, ``ProjPoint``,
+    ``EtecPoint``, ``MontPoint`` or ``Signature``) -> the port's, through
+    ints."""
+    from ethsnarks_tpu_torch import eddsa, jubjub
+    from ethsnarks_tpu_torch.field import FQ
+    if type(obj).__name__ == 'Signature':
+        return eddsa.Signature(port_jubjub(obj.R), int(obj.s))
+    return getattr(jubjub, type(obj).__name__)(*(FQ(int(c)) for c in obj))
+
+
+def ints_of(obj):
+    """A host JubJub point or signature of either package -> its
+    coordinates (and s) as ints, for comparisons."""
+    if type(obj).__name__ == 'Signature':
+        return ints_of(obj.R) + (int(obj.s),)
+    return tuple(int(c) for c in obj)
