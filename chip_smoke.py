@@ -65,13 +65,15 @@ Phases (any mismatch fails the run with a non-zero exit):
    (msm_impl 'fused': must take the dense route and launch K1, K5 and K3
    of its group and no other) and the scan MSM (msm_impl 'generic': K6,
    K5, K2 (once a window, n = c) and K1), against the same oracle, timed.
-6. setup -> prove -> verify at full width: the 1,045,409-constraint MiMC-e7
-   chain of tools/bench_prove.py:build_circuit(20) (m = 2^20) goes
-   through the port's generator on the card (both K4 instances must
-   launch), a ProverContext on the resulting key and two proofs (K1 and K3
-   of both groups must launch, and nothing else); each proof must pass
-   vk.verify, and the proof with
-   its input changed by one must fail it.
+6. setup -> prove -> verify: the 261,353-constraint MiMC-e7 chain of
+   tools/bench_prove.py:build_circuit(18) (m = 2^18; CHAIN_LOG, cut from
+   2^20 so that the script stays inside its time limit with phases 8b and
+   12: the flagship still proves at 2^20, and phase 5 keeps the 2^20
+   transform chain) goes through the port's generator on the card (both
+   K4 instances must launch), a ProverContext on the resulting key and two
+   proofs (K1 and K3 of both groups must launch, and nothing else); each
+   proof must pass vk.verify, and the proof with its input changed by one
+   must fail it.
 6b. one proof each from ProverContexts with msm_impl 'fused' and
    'generic' on the same key and QAP: each proof's JSON must equal the
    'red' proof's, and each must pass vk.verify.
@@ -94,6 +96,17 @@ Phases (any mismatch fails the run with a non-zero exit):
    accepted by the Verifier.sol bytecode twin (``evm_verifier``) and
    refused with the root changed.  Phase 6's circuit, key and context are
    freed first; the host's peak RSS is printed.
+8b. the flagship through the entry points, before phase 8 frees its
+   circuit and key: ``vk2json_file`` and ``write_pk_binary`` to a
+   temporary directory, ``stubs.load_proving_key`` (onto the card),
+   ``stubs.make_prover_context`` and ``stubs.prove``, whose JSON must
+   equal the 'red' proof's (K1 and K3 of both groups and nothing else);
+   then ``stub_verify``, ``stub_main_verify``, the processed key's strong
+   and weak checks, ``affine_verify_weak_IC``, ``NativeVerifier`` and
+   ``NativeProcessedVK`` (strong and weak; the C++ library built by
+   ``make -C native``) and ``python -m ethsnarks_tpu_torch.cli.verify``
+   must each accept the proof and refuse it with the root changed;
+   ``vk_to_sol`` and ``proof_to_sol`` must give Solidity.
 9. the SHA-256 preimage (bench_workloads' sha256_preimage row):
    BatchSha256(1, 512) of bytes(range(64)) must have 60,131 constraints
    (domain 2^16); the witness (the batched SHA-256 trace on the card, which
@@ -119,6 +132,20 @@ Phases (any mismatch fails the run with a non-zero exit):
    the batched verify ops on that seed's first 4 signatures: the affine
    lhs = s B, the Pedersen hash's x and rhs = R + t A, read back with
    ``device_to_points``, must equal the host's, and every lane accept.
+12. a Pinocchio circuit through its command line: a generated ``.arith``
+   circuit (``pinocchio_circuit``, seeded from SEED: 2,048 blocks of every
+   opcode the reader knows, tables of 1, 2 and 3 bits, input, nizkinput
+   and output wires; 55,296 constraints, m = 2^16) and its ``.input``
+   file, then ``python -m ethsnarks_tpu_torch.pinocchio`` as subprocesses:
+   ``eval`` must print the outputs of ``CircuitReader.eval()`` in this
+   process; ``genkeys`` (K4 G1 and G2 must launch), ``prove`` (must end
+   with OK and launch K1 and K3 of both groups and nothing else),
+   ``verify`` (rc 0), ``verify`` of the proof with its first output
+   changed (rc 1) and ``test`` (setup, proof and verify in one process on
+   the card; K4, K1 and K3 must launch).  The launching subprocesses run
+   the module as ``__main__`` under a wrapper that prints the launch
+   counts at exit; they, and phase 8b's stubs.prove, are the ``entry``
+   path of the kernels line.
 
 Launch counts are reset just before and read just after each path.  The
 last lines are a JSON ``kernels`` record, the nvidia-smi line, and
@@ -134,13 +161,16 @@ import resource
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 from ethsnarks_tpu_torch import bench, bench_merkle, bench_workloads, bn254, \
-    probe
+    probe, stubs
+from ethsnarks_tpu_torch.cli.proof2sol import proof_to_sol
+from ethsnarks_tpu_torch.cli.vk2sol import vk_to_sol
 from ethsnarks_tpu_torch.cost import FQ_MUL_IMAD, IMAD_PER_S, OP_IMAD, \
     bound_ms, horner_steps, latency_floor_ms, point_bytes
 from ethsnarks_tpu_torch.field import CURVE_ORDER, FIELD_MODULUS, \
@@ -158,12 +188,14 @@ from ethsnarks_tpu_torch.ops.batch_exp import BatchExp, C, N_WIN
 from ethsnarks_tpu_torch.ops.fp import Fq, Fr, words_to_h16, \
     ints_to_words_np, words_to_ints, h16_to_words
 from ethsnarks_tpu_torch.ops.ntt import NttDomain
+from ethsnarks_tpu_torch.pinocchio import CircuitReader
 from ethsnarks_tpu_torch.poseidon import poseidon
 from ethsnarks_tpu_torch.qap import h_coefficients
 from ethsnarks_tpu_torch.r1cs import ConstraintSystem
 from ethsnarks_tpu_torch.serialization import read_pk_binary, \
-    r1cs_from_dict, witness_from_json, write_pk_binary
-from ethsnarks_tpu_torch.verifier import Proof
+    r1cs_from_dict, vk2json_file, witness_from_json, write_pk_binary
+from ethsnarks_tpu_torch.verifier import NativeVerifier, Proof, \
+    VerifyingKey, affine_verify_weak_IC
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(ROOT, "ethsnarks_tpu_torch", "fixtures",
@@ -173,7 +205,8 @@ SETUP_SEED = 20261016           # the fixture's setup rng seed
 DEV = torch.device("cuda")
 CHECK_POINTS = 1 << 14          # points per kernel-vs-twin comparison
 TIME_LANES = 1 << 21            # K1 timing lanes (gathers from 2^20 points)
-FULL_LOG = 20                   # MSM points, transform domain, circuit size
+FULL_LOG = 20                   # MSM points, transform domain, flagship
+CHAIN_LOG = 18                  # phase 6's MiMC chain (cut from 2^20)
 SCAN_PLAIN_LOG = 20             # K6's plain version is timed on 2^20 elements
 MERKLE_PROOFS = 48              # the flagship: 48 depth-29 proofs, m = 2^20
 MERKLE_DEPTH = bench_merkle.DEPTH
@@ -185,6 +218,8 @@ EDDSA_MSG_BITS = 256            # EdDSAVerify(256): 8,050 constraints
 EDDSA_CONSTRAINTS = 8050
 EDDSA_LOG = 13
 EDDSA_LANES = 4                 # the batched verify's intermediates
+PINOCCHIO_BLOCKS = 2048         # 27 constraints a block: 55,296, m = 2^16
+PINOCCHIO_LOG = 16
 
 
 def log(*args):
@@ -580,7 +615,7 @@ def fixture_context():
     cs = fixture_cs()
     t0 = time.perf_counter()
     pk = read_pk_binary(os.path.join(FIXTURE, "pk.bin"), DEV)
-    ctx = ProverContext(pk, cs, DEV)
+    ctx = ProverContext(pk, cs, device=DEV)
     log("  fixture key load + context: %.3f s (m = %d, c = %s)"
         % (time.perf_counter() - t0, ctx.qap.domain_size, ctx.c))
     return ctx
@@ -625,7 +660,8 @@ def phase_prove(ctx):
     log("  launches over the two proofs: %s" % json.dumps(launches))
     check_red_launches(launches, "the fixture prove")
     for impl in ("fused", "generic"):
-        other = ProverContext(ctx.pk, None, DEV, qap=ctx.qap, msm_impl=impl)
+        other = ProverContext(ctx.pk, None, device=DEV, qap=ctx.qap,
+                              msm_impl=impl)
         t0 = time.perf_counter()
         proof = other.prove(witness)
         if proof.to_json() != expected:
@@ -1246,7 +1282,7 @@ def phase_fixture_zk(nozk_ctx):
     witness = witness_from_json(os.path.join(FIXTURE, "witness.json"))
     with open(os.path.join(FIXTURE, "proof.json")) as fh:
         expected = fh.read()
-    ctx = ProverContext(kp.pk, cs, DEV, qap=kp.qap)
+    ctx = ProverContext(kp.pk, cs, device=DEV, qap=kp.qap)
     if ctx.prove(witness).to_json() != expected:
         fail("the zk key's unblinded proof differs from proof.json")
     blinder = random.Random(SEED)
@@ -1315,8 +1351,8 @@ def host_rss_gb():
 
 
 def phase_full_path():
-    """setup -> two proofs -> verify on the MiMC chain of 2^FULL_LOG."""
-    log_n = FULL_LOG
+    """setup -> two proofs -> verify on the MiMC chain of 2^CHAIN_LOG."""
+    log_n = CHAIN_LOG
     log("== phase 6: setup -> prove -> verify, MiMC-e7 chain 2^%d" % log_n)
     t0 = time.perf_counter()
     cs = build_circuit(log_n)
@@ -1339,7 +1375,7 @@ def phase_full_path():
         if setup_launches[k.name] == 0:
             fail("setup did not launch %s" % k.name)
     t0 = time.perf_counter()
-    ctx = ProverContext(kp.pk, cs, DEV, qap=kp.qap)
+    ctx = ProverContext(kp.pk, cs, device=DEV, qap=kp.qap)
     t_ctx = time.perf_counter() - t0
     log("  ProverContext on the setup's key and QAP: %.3f s (c = %s); the "
         "setup's qap_build took %.2f s" % (t_ctx, ctx.c,
@@ -1374,7 +1410,8 @@ def phase_full_path():
         "'generic'")
     other = {}
     for impl in ("fused", "generic"):
-        ctx_i = ProverContext(kp.pk, cs, DEV, qap=kp.qap, msm_impl=impl)
+        ctx_i = ProverContext(kp.pk, cs, device=DEV, qap=kp.qap,
+                              msm_impl=impl)
         kernels.reset_counts()
         t0 = time.perf_counter()
         proof = ctx_i.prove(cs.values)
@@ -1466,7 +1503,7 @@ def prove_every_impl(kp, cs, what, others=("fused", "generic")):
     msm_impl of ``others``, each equal to the first.  -> (the proofs, each
     run's seconds, routes and phases, the launches of the 'auto' pair and
     of each other design)."""
-    ctx = ProverContext(kp.pk, cs, DEV, qap=kp.qap)
+    ctx = ProverContext(kp.pk, cs, device=DEV, qap=kp.qap)
     kernels.reset_counts()
     proofs, runs = [], {}
     for rep in range(2):
@@ -1485,7 +1522,8 @@ def prove_every_impl(kp, cs, what, others=("fused", "generic")):
     if proofs[0].to_json() != proofs[1].to_json():
         fail("%s: two nozk proofs differ" % what)
     for impl in others:
-        ctx_i = ProverContext(kp.pk, cs, DEV, qap=kp.qap, msm_impl=impl)
+        ctx_i = ProverContext(kp.pk, cs, device=DEV, qap=kp.qap,
+                              msm_impl=impl)
         kernels.reset_counts()
         t0 = time.perf_counter()
         proof = ctx_i.prove(cs.values)
@@ -1592,7 +1630,9 @@ def phase_merkle():
         "(%.2f s); the Verifier.sol twin accepts the 'red' proof and "
         "refuses it with the root changed (%.2f s); host peak RSS %.2f GB"
         % (len(proofs), t_verify, t_evm, host_rss_gb()))
+    entry = phase_merkle_entry(kp, cs, proofs[0])
     return {"constraints": cs.num_constraints, "m": kp.qap.domain_size,
+            "entry": entry,
             "build_seconds": t_build, "tree_seconds": t_tree,
             "witness_seconds": t_witness,
             "trace_seconds": model.trace_seconds,
@@ -1601,6 +1641,288 @@ def phase_merkle():
             "proofs": runs, "prove_launches": launches,
             "verify_seconds": t_verify, "evm_seconds": t_evm,
             "host_peak_rss_gb": host_rss_gb()}
+
+
+# ---------------------------------------------------------------- phase 8b
+
+# Runs a module as __main__ (as ``python -m`` does) and prints every
+# kernel's launch count in that process when it exits.
+COUNTING_MAIN = """
+import atexit, json, runpy, sys
+from ethsnarks_tpu_torch.ops import kernels
+atexit.register(lambda: print("LAUNCHES " + json.dumps(
+    {k.name: k.launches for k in kernels.ALL}), flush=True))
+sys.argv = sys.argv[1:]
+runpy.run_module(sys.argv[0], run_name="__main__", alter_sys=True)
+"""
+
+
+def run_module(args, want_rc, counted=False):
+    """``python -m <args>`` from the repo root, which must exit with
+    ``want_rc`` -> (its stdout lines, seconds, its launches or None).
+    counted: run it under COUNTING_MAIN; the LAUNCHES line is taken out
+    of the lines."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable] + (["-c", COUNTING_MAIN] if counted else ["-m"])
+        + list(args), cwd=ROOT, capture_output=True, text=True,
+        timeout=600)
+    dt = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    if proc.returncode != want_rc:
+        fail("python -m %s: rc %d, not %d\n%s%s" % (
+            " ".join(args), proc.returncode, want_rc, proc.stdout[-3000:],
+            proc.stderr[-3000:]))
+    counts = None
+    if counted:
+        tagged = [ln for ln in lines if ln.startswith("LAUNCHES ")]
+        if len(tagged) != 1:
+            fail("python -m %s printed no launch counts\n%s" % (
+                " ".join(args), proc.stderr[-3000:]))
+        counts = json.loads(tagged[0][len("LAUNCHES "):])
+        lines = [ln for ln in lines if not ln.startswith("LAUNCHES ")]
+    log("  python -m %s: rc %d, %.2f s, last line %r%s" % (
+        " ".join(os.path.basename(a) for a in args), proc.returncode, dt,
+        lines[-1] if lines else "", "" if counts is None else
+        "; launches %s" % json.dumps({k: v for k, v in counts.items()
+                                      if v})))
+    return lines, dt, counts
+
+
+def add_counts(*counts):
+    return {k.name: sum(c[k.name] for c in counts) for k in kernels.ALL}
+
+
+def phase_merkle_entry(kp, cs, proof):
+    """8b: the flagship's keys through files and the one-call helpers of
+    ``stubs``: the proof must equal the 'red' ``proof``, and every
+    verifier flavour and ``cli.verify`` must accept it and refuse it with
+    the root changed."""
+    log("== phase 8b: the flagship through the entry points")
+    out, times = {}, {}
+    want = proof.to_json()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as d:
+        vk_file, pk_file = os.path.join(d, "vk.json"), os.path.join(d, "pk")
+        t0 = time.perf_counter()
+        vk2json_file(kp.vk, vk_file)
+        write_pk_binary(kp.pk, pk_file)
+        times["key_write"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pk = stubs.load_proving_key(pk_file)
+        times["key_read"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ctx = stubs.make_prover_context(pk, cs)
+        times["context"] = time.perf_counter() - t0
+        if ctx.device.type != DEV.type:
+            fail("make_prover_context took %s, not %s" % (ctx.device, DEV))
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        got = stubs.prove(ctx, cs)
+        times["prove"] = time.perf_counter() - t0
+        out["launches"] = launch_counts()
+        check_red_launches(out["launches"], "the flagship's stubs.prove")
+        if got != want:
+            fail("stubs.prove of the flagship differs from its 'red' proof")
+        log("  key write %.2f s (%.1f MB), read %.2f s, context %.2f s, "
+            "stubs.prove %.3f s: JSON equal to the 'red' proof; launches %s"
+            % (times["key_write"], os.path.getsize(pk_file) / 1e6,
+               times["key_read"], times["context"], times["prove"],
+               json.dumps({k: v for k, v in out["launches"].items() if v})))
+        del ctx, pk
+        torch.cuda.empty_cache()
+        good = Proof.from_json(got)
+        bad = bench_merkle.root_changed(good)
+        files = {}
+        for tag, p in (("good", good), ("bad", bad)):
+            files[tag] = os.path.join(d, tag + ".json")
+            with open(files[tag], "w") as fh:
+                fh.write(p.to_json())
+        with open(vk_file) as fh:
+            vk_json = fh.read()
+        vk = VerifyingKey.from_json(vk_json)
+        t0 = time.perf_counter()
+        pvk = vk.process()
+        times["process"] = time.perf_counter() - t0
+        nvk = NativeVerifier.from_dict(vk.to_dict())
+        t0 = time.perf_counter()
+        npvk = nvk.process_native()
+        times["native_build_process"] = time.perf_counter() - t0
+        flavours = [
+            ("stub_verify", lambda tag, p: stubs.stub_verify(
+                vk_json, p.to_json())),
+            ("stub_main_verify", lambda tag, p: stubs.stub_main_verify(
+                "stub_main_verify", [vk_file, files[tag]]) == 0),
+            ("processed_strong", lambda tag, p:
+             pvk.online_verify_strong_IC(p)),
+            ("processed_weak", lambda tag, p: pvk.online_verify_weak_IC(p)),
+            ("affine_weak", lambda tag, p: affine_verify_weak_IC(vk, p)),
+            ("native", lambda tag, p: nvk.verify(p)),
+            ("native_processed_strong", lambda tag, p: npvk.verify(p)),
+            ("native_processed_weak", lambda tag, p: npvk.verify(p, False)),
+            ("cli_verify", lambda tag, p: run_module(
+                ["ethsnarks_tpu_torch.cli.verify", vk_file, files[tag]],
+                0 if tag == "good" else 1)[0] == ["OK"])]
+        for name, check in flavours:
+            t0 = time.perf_counter()
+            if not check("good", good):
+                fail("%s refuses the flagship proof" % name)
+            if check("bad", bad):
+                fail("%s accepts the flagship proof with its root changed"
+                     % name)
+            times[name] = time.perf_counter() - t0
+        npvk.close()
+        sol = (vk_to_sol(vk), proof_to_sol(good))
+        if not all(sol):
+            fail("vk_to_sol / proof_to_sol gave empty text")
+        log("  every verifier accepts the proof and refuses it with the "
+            "root changed (seconds for both): %s; Solidity %d + %d chars"
+            % (json.dumps({k: round(v, 3) for k, v in times.items()}),
+               len(sol[0]), len(sol[1])))
+    out["seconds"] = times
+    return out
+
+
+# ---------------------------------------------------------------- phase 12
+
+def pinocchio_circuit(n_blocks, rng):
+    """A generated ``.arith`` circuit and its ``.input`` text: two public
+    inputs (a byte s and a field element acc), two nizk inputs, and
+    ``n_blocks`` blocks of 27 constraints, each with every opcode the
+    reader knows: split s into 8 bits; xor, or; tables of 1, 2 and 3 bits
+    (t3 reads the xor and the or); acc * t3 by mul, checked again by
+    assert; const-mul and const-mul-neg; acc' = the add of four wires (a
+    nizk input among them); zerop of the xor; s' = pack of 7 of the bits
+    and the zerop flag.  Outputs: the last acc, s and t3."""
+    r = SNARK_SCALAR_FIELD
+    count = [0]
+
+    def wires(n):
+        count[0] += n
+        return list(range(count[0] - n, count[0]))
+
+    def consts(n):
+        return " ".join(str(int.from_bytes(rng.bytes(32), "little") % r)
+                        for _ in range(n))
+
+    def ws(ids):
+        return " ".join(map(str, ids))
+    s, acc = wires(2)
+    nizk = wires(2)
+    body = []
+    for i in range(n_blocks):
+        bits = wires(8)
+        x, o, t1, t2, t3, m, k1, k2, acc2, zm, zy, s2 = wires(12)
+        c1, c2 = (int(v) for v in rng.integers(1, 1 << 62, 2))
+        body += [
+            "split in 1 <%d> out 8 <%s>" % (s, ws(bits)),
+            "xor in 2 <%d %d> out 1 <%d>" % (bits[0], bits[1], x),
+            "or in 2 <%d %d> out 1 <%d>" % (bits[2], bits[3], o),
+            "table 1 <%s> in <%d> out <%d>" % (consts(2), bits[4], t1),
+            "table 2 <%s> in <%d %d> out <%d>" % (consts(4), bits[5],
+                                                  bits[6], t2),
+            "table 3 <%s> in <%d %d %d> out <%d>" % (consts(8), bits[7], x,
+                                                     o, t3),
+            "mul in 2 <%d %d> out 1 <%d>" % (acc, t3, m),
+            "assert in 2 <%d %d> out 1 <%d>" % (acc, t3, m),
+            "const-mul-%x in 1 <%d> out 1 <%d>" % (c1, m, k1),
+            "const-mul-neg-%x in 1 <%d> out 1 <%d>" % (c2, t1, k2),
+            "add in 4 <%s> out 1 <%d>" % (ws([k1, k2, t2, nizk[i % 2]]),
+                                          acc2),
+            "zerop in 1 <%d> out 2 <%d %d>" % (x, zm, zy),
+            "pack in 8 <%s> out 1 <%d>" % (ws(bits[1:] + [zy]), s2),
+        ]
+        acc, s = acc2, s2
+    head = ["total %d" % count[0], "input 0", "input 1",
+            "nizkinput %d" % nizk[0], "nizkinput %d" % nizk[1]]
+    tail = ["output %d" % w for w in (acc, s, t3)]
+    inputs = {0: int(rng.integers(0, 256)), nizk[0]: None, nizk[1]: None,
+              1: None}
+    for w in inputs:
+        if inputs[w] is None:
+            inputs[w] = int.from_bytes(rng.bytes(32), "little") % r
+    return ("\n".join(head + body + tail) + "\n",
+            "".join("%d=%x\n" % kv for kv in sorted(inputs.items())))
+
+
+def phase_pinocchio():
+    """12: the generated circuit through ``python -m
+    ethsnarks_tpu_torch.pinocchio``: eval, genkeys, prove, verify (and
+    the proof with an output changed), test."""
+    log("== phase 12: a generated Pinocchio circuit through its command "
+        "line")
+    t0 = time.perf_counter()
+    arith, inputs = pinocchio_circuit(PINOCCHIO_BLOCKS,
+                                      np.random.default_rng(SEED))
+    reader = CircuitReader(arith)
+    reader.set_inputs(inputs)
+    outputs = reader.eval()
+    cs, w2v = reader.build_constraint_system()
+    reader.fill_witness(cs, w2v)
+    t_build = time.perf_counter() - t0
+    if not cs.is_satisfied():
+        fail("the generated circuit's witness does not satisfy it")
+    m = 1 << (cs.num_constraints + cs.num_inputs).bit_length()
+    if m != 1 << PINOCCHIO_LOG:
+        fail("the generated circuit (%d constraints) is not at m = 2^%d"
+             % (cs.num_constraints, PINOCCHIO_LOG))
+    want = ["%d=%d" % (w, outputs[w]) for w in reader.output_wires]
+    log("  circuit: %d instructions, %d wires, %d constraints, %d public "
+        "inputs, m = %d; parse, eval, constraints and witness in the parent "
+        "%.2f s" % (len(reader.instructions), reader.total,
+                    cs.num_constraints, cs.num_inputs, m, t_build))
+    out = {"constraints": cs.num_constraints, "m": m,
+           "build_seconds": t_build, "seconds": {}}
+    mod = "ethsnarks_tpu_torch.pinocchio"
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as d:
+        path = {n: os.path.join(d, n) for n in (
+            "c.arith", "c.input", "pk", "vk.json", "proof.json", "bad.json")}
+        with open(path["c.arith"], "w") as fh:
+            fh.write(arith)
+        with open(path["c.input"], "w") as fh:
+            fh.write(inputs)
+        circ = path["c.arith"]
+        lines, out["seconds"]["eval"], _ = run_module(
+            [mod, circ, "eval", path["c.input"]], 0)
+        if lines != want:
+            fail("pinocchio eval printed %s, the parent's eval %s"
+                 % (lines, want))
+        lines, out["seconds"]["genkeys"], genkeys = run_module(
+            [mod, circ, "genkeys", path["pk"], path["vk.json"]], 0, True)
+        if lines[-1:] != ["OK"]:
+            fail("pinocchio genkeys ended with %s" % lines[-1:])
+        for k in kernels.SETUP:
+            if not genkeys[k.name]:
+                fail("pinocchio genkeys did not launch %s" % k.name)
+        lines, out["seconds"]["prove"], prove = run_module(
+            [mod, circ, "prove", path["c.input"], path["pk"],
+             path["proof.json"]], 0, True)
+        if lines[-1:] != ["OK"]:
+            fail("pinocchio prove ended with %s" % lines[-1:])
+        check_red_launches(prove, "pinocchio prove")
+        lines, out["seconds"]["verify"], _ = run_module(
+            [mod, circ, "verify", path["vk.json"], path["proof.json"]], 0)
+        if lines != ["OK"]:
+            fail("pinocchio verify printed %s" % lines)
+        with open(path["proof.json"]) as fh:
+            proof = json.load(fh)
+        k = len(reader.input_wires)
+        proof["input"][k] = hex((int(proof["input"][k], 16) + 1)
+                                % SNARK_SCALAR_FIELD)
+        with open(path["bad.json"], "w") as fh:
+            json.dump(proof, fh)
+        lines, out["seconds"]["verify_output_changed"], _ = run_module(
+            [mod, circ, "verify", path["vk.json"], path["bad.json"]], 1)
+        if lines != ["FAIL"]:
+            fail("pinocchio verify of the changed proof printed %s" % lines)
+        lines, out["seconds"]["test"], test = run_module(
+            [mod, circ, "test", path["c.input"]], 0, True)
+        if lines[-1:] != ["OK"]:
+            fail("pinocchio test ended with %s" % lines[-1:])
+        for k in kernels.SETUP + RED_KERNELS:
+            if not test[k.name]:
+                fail("pinocchio test did not launch %s" % k.name)
+    out["launches"] = add_counts(genkeys, prove, test)
+    return out
 
 
 # ---------------------------------------------------------------- phase 9
@@ -1914,6 +2236,7 @@ def main():
     sha = phase_sha256()
     pos = phase_poseidon()
     ed = phase_eddsa()
+    pino = phase_pinocchio()
     card_state("at the end")
     log("  full-path results: %s" % json.dumps(
         dict(path, fixture_setup=fixture_setup, fixture_zk=fixture_zk),
@@ -1922,19 +2245,24 @@ def main():
     log("  SHA-256 results: %s" % json.dumps(sha, default=str))
     log("  Poseidon results: %s" % json.dumps(pos, default=str))
     log("  EdDSA results: %s" % json.dumps(ed, default=str))
-    # launches by path: the 2^20 setups (K4), their two 'red' proofs (K1,
-    # K3), their 'fused' and 'generic' proofs and the 5b MSMs (K1-K3, K5,
-    # K6), and the probe (K7, K7b); "launches" is their sum
-    by_path = {"setup_2^20": path["setup_launches"],
-               "prove_2^20_red_x2": path["prove_launches"],
-               "probe": entry["probe_launches"]}
+    log("  Pinocchio results: %s" % json.dumps(pino, default=str))
+    # launches by path: the setups (K4), their 'red' proofs (K1, K3),
+    # their 'fused' and 'generic' proofs and the 5b MSMs (K1-K3, K5, K6),
+    # the probe (K7, K7b), and the entry points of phases 8b and 12 (K1,
+    # K3, K4); "launches" is their sum
+    chain = "chain_2^%d" % CHAIN_LOG
+    by_path = {"setup_" + chain: path["setup_launches"],
+               "prove_%s_red_x2" % chain: path["prove_launches"],
+               "probe": entry["probe_launches"],
+               "entry": add_counts(merkle["entry"]["launches"],
+                                   pino["launches"])}
     for tag, r in (("2^20_merkle", merkle), ("2^16_sha256", sha),
                    ("2^19_poseidon", pos), ("2^13_eddsa", ed)):
         by_path["setup_" + tag] = r["setup_launches"]
         for impl, counts in r["prove_launches"].items():
             by_path["prove_%s_%s" % (tag, impl)] = counts
     for impl, r in path["msm_impls"].items():
-        by_path["prove_2^20_" + impl] = r["launches"]
+        by_path["prove_%s_%s" % (chain, impl)] = r["launches"]
     for tag in ("msm_g1", "msm_g2"):
         for impl, r in full[tag + "_routes"].items():
             by_path["%s_2^20_%s" % (tag, impl)] = r["launches"]

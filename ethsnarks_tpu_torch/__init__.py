@@ -10,18 +10,25 @@ witness map, window digits, the Pippenger MSMs on hand-written Hopper
 kernels, host finalisation); the kernels are in ``csrc/``.  The circuit
 library (``gadgets``, ``models``) with its batched witness traces
 (``ops/mimc.py``, ``ops/sha256_ops.py``, ``ops/poseidon_ops.py``) feeds
-them; ``ops/eddsa_ops.py`` verifies EdDSA signatures in batches.
+them; ``ops/eddsa_ops.py`` verifies EdDSA signatures in batches.  The
+reference's user surface sits on top: ``stubs``, ``pinocchio`` and
+``cli`` (``python -m`` entry points), the key and proof formats of
+``serialization``, and the processed, affine and native verifiers.
 
 Entry points take ``device=None``, which means the CUDA card.  Without one
 they raise: nothing drops to the CPU unless the caller passes
-``device="cpu"`` (as the tests do).
-"""
+``device="cpu"`` (as the tests do) or, to the prover, the reference's
+``use_device_msm=False``.
 
-import torch
+torch is imported on first use, so the host-only tools (``pinocchio
+eval``, ``cli.verify``, ``python -m ethsnarks_tpu_torch.mimc``) start
+without it.
+"""
 
 
 def resolve_device(device=None):
     """``None`` -> ``cuda`` (raises without a card); else ``torch.device``."""
+    import torch
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(

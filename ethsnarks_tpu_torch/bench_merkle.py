@@ -89,7 +89,7 @@ def run(n_proofs=48, reps=2, device=None, log=print):
     kp = generator(cs, rng=seeded_rng(), device=model.device)
     secs['setup'] = time.perf_counter() - t0
     log("setup %.1f s (m = %d)" % (secs['setup'], kp.qap.domain_size))
-    ctx = ProverContext(kp.pk, cs, model.device, qap=kp.qap)
+    ctx = ProverContext(kp.pk, cs, device=model.device, qap=kp.qap)
     prove_sec = []
     for _ in range(reps):
         t0 = time.perf_counter()

@@ -204,7 +204,7 @@ def bench_sha256_preimage(device=None):
     satisfied = pb.is_satisfied()
     n = pb.num_constraints
     kp = generator(pb, rng=seeded_rng(), device=dev)
-    ctx = ProverContext(kp.pk, pb, dev, qap=kp.qap)
+    ctx = ProverContext(kp.pk, pb, device=dev, qap=kp.qap)
     dt, times, proof = _time(lambda: ctx.prove(pb.values), dev, SHA_REPS)
     ok = satisfied and kp.vk.verify(proof)
     return _row("sha256_preimage_prove_sec", dt,

@@ -229,13 +229,34 @@ class ProverContext(object):
     all-windows MSM of :mod:`.ops.msm_dense` (with its fallbacks to the scan
     MSM); 'generic', the scan MSM of :mod:`.ops.msm_scan` with the generic
     window step.  All give the same proof.  config: a :class:`Config`;
-    its ``multi_exp_c`` sets every MSM's window bits."""
+    its ``multi_exp_c`` sets every MSM's window bits.
 
-    def __init__(self, pk, cs, device=None, qap=None, msm_impl='auto',
-                 config=None):
+    The call forms are the reference's (``ethsnarks_tpu/groth16.py:303``).
+    use_device_msm: True runs on ``device`` (None: the CUDA card, which
+    raises without one); False is the caller asking for the CPU, the
+    reference's host oracle: the plain versions of the kernels run there,
+    and a CUDA ``device`` with it raises ValueError.  mesh: the
+    multi-device prover is not ported (ROADMAP #11); anything but None
+    raises NotImplementedError."""
+
+    def __init__(self, pk, cs, use_device_msm=True, config=None,
+                 msm_impl='auto', mesh=None, *, device=None, qap=None):
         if msm_impl not in MSM_IMPLS:
             raise ValueError("msm_impl %r: one of %s"
                              % (msm_impl, ", ".join(MSM_IMPLS)))
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh: the multi-device prover is not ported yet "
+                "(ROADMAP #11)")
+        if isinstance(use_device_msm, (str, torch.device)):
+            raise TypeError("use_device_msm is a bool; pass the device as "
+                            "device=%r" % (use_device_msm,))
+        if not use_device_msm:
+            if device is None:
+                device = 'cpu'
+            elif torch.device(device).type != 'cpu':
+                raise ValueError("use_device_msm=False asks for the CPU, "
+                                 "but device=%r" % (device,))
         self.msm_impl = msm_impl
         self.config = config or Config()
         self.device = resolve_device(device)
@@ -330,3 +351,8 @@ class ProverContext(object):
         self.last_profile = _spans(marks)
         self.last_routes = routes
         return proof
+
+
+def prove(context, witness_values):
+    """One-call helper (``ethsnarks_tpu/groth16.py:793``)."""
+    return context.prove(witness_values)

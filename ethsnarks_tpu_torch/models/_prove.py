@@ -17,6 +17,6 @@ def prove(pb, keypair=None, context=None, device=None, rng=None,
     if context is None:
         qap = keypair.qap if keypair.qap is not None and \
             keypair.qap.device == dev else None
-        context = ProverContext(keypair.pk, pb, dev, qap=qap,
+        context = ProverContext(keypair.pk, pb, device=dev, qap=qap,
                                 msm_impl=msm_impl)
     return context.prove(pb.values), keypair, context

@@ -1,10 +1,12 @@
 """Optimal-ate pairing on BN254, host and exact (own copy of
-``ethsnarks_tpu/pairing.py:1-108``).
+``ethsnarks_tpu/pairing.py``).
 
 The twisted G2 point is lifted into E(Fq12) (u = w^6 - 9), the Miller loop
 runs with affine line functions over Fq12, and a product of pairings
-shares one final exponentiation, as the EVM precompile does.  The
-precomputed-G2 loop of the processed verifying key is not ported yet.
+shares one final exponentiation, as the EVM precompile does.
+:class:`G2Precomp` and :func:`miller_loop_precomp` split the loop for a
+fixed G2 point (the processed verifying key's gamma and delta): the
+point steps and slopes once, the line evaluations per proof.
 """
 
 from .bn254 import (
@@ -94,3 +96,58 @@ def pairing_product_is_one(pairs):
         assert is_on_curve(q, B2), "Q not on twist"
         acc = acc * miller_loop(twist(q), cast_g1_to_fq12(p))
     return final_exponentiate(acc) == Fq12.one()
+
+
+# ---------------- precomputed-G2 Miller loop (processed VK) ----------------
+
+def _line_coeffs(p1, p2):
+    """The line through p1, p2 (tangent when equal) on E(Fq12) as (kind,
+    m, x1, y1): it evaluates at t to m (xt - x1) - (yt - y1), or to
+    xt - x1 for a vertical line (kind 'v')."""
+    x1, y1 = p1
+    x2, y2 = p2
+    if x1 != x2:
+        return ('l', (y2 - y1) / (x2 - x1), x1, y1)
+    if y1 == y2:
+        return ('l', (3 * (x1 * x1)) / (2 * y1), x1, y1)
+    return ('v', None, x1, y1)
+
+
+class G2Precomp(object):
+    """The Miller loop's line coefficients for a fixed G2 point ``q``: the
+    point doublings and additions of R and every slope (all the Fq12
+    inversions) run once here; :func:`miller_loop_precomp` then does only
+    the line evaluations and the updates of f."""
+
+    def __init__(self, q):
+        assert is_on_curve(q, B2), "Q not on twist"
+        self.q = q
+        qt = twist(q)
+        steps = []   # ('dbl' | 'add', kind, m, x1, y1)
+        r = qt
+        for i in range(ATE_LOOP_COUNT.bit_length() - 2, -1, -1):
+            steps.append(('dbl',) + _line_coeffs(r, r))
+            r = double(r)
+            if ATE_LOOP_COUNT & (1 << i):
+                steps.append(('add',) + _line_coeffs(r, qt))
+                r = add(r, qt)
+        q1 = (qt[0] ** FIELD_MODULUS, qt[1] ** FIELD_MODULUS)
+        nq2 = (q1[0] ** FIELD_MODULUS, -(q1[1] ** FIELD_MODULUS))
+        steps.append(('add',) + _line_coeffs(r, q1))
+        r = add(r, q1)
+        steps.append(('add',) + _line_coeffs(r, nq2))
+        self.steps = steps
+
+
+def miller_loop_precomp(precomp, p):
+    """The Miller loop of a host affine G1 point ``p`` against a
+    :class:`G2Precomp`: equal to ``miller_loop(twist(q), cast_g1_to_fq12(p))``
+    coefficient for coefficient."""
+    if is_inf(p):
+        return Fq12.one()
+    xt, yt = cast_g1_to_fq12(p)
+    f = Fq12.one()
+    for op, kind, m, x1, y1 in precomp.steps:
+        val = m * (xt - x1) - (yt - y1) if kind == 'l' else xt - x1
+        f = f * f * val if op == 'dbl' else f * val
+    return f

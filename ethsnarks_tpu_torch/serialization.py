@@ -1,14 +1,25 @@
 """The reference's on-disk formats (counterparts in
 ``ethsnarks_tpu/serialization.py``).
 
+- R1CS and witness JSON (:13-75): :func:`r1cs_to_dict` / :func:`r1cs2json`
+  write the snarkjs-style layout (nPubInputs, nVars, nConstraints, one
+  ``{variable: coefficient}`` map per A, B, C row), :func:`r1cs_from_dict`
+  reads it back; :func:`witness2json` / :func:`witness_from_json`, a
+  flat list of decimal strings; :func:`vk2json_file` and
+  :func:`proof_to_json`, the verifier's JSON.
+- The bellman / snarkjs proving key (:78-210): :func:`pk_to_bellman_dict`
+  reads the key's query tensors back to host points in the dense bellman
+  layout, :func:`pk_from_bellman_dict` builds a key on a device from one,
+  and :func:`pk_bellman2ethsnarks` converts a bellman file into the
+  binary key.
 - :func:`read_pk_binary` / :func:`write_pk_binary`: the binary
   Montgomery-form proving key of the reference (:208-345).  The key stores
   field elements as 8 little-endian 32-bit words of x * 2^256 mod q, the
   port's own layout, so the query points load into device tensors without
   arithmetic; writing normalises the projective query points to affine
-  with one batch inversion per query.  Each reads what the other writes.
-- :func:`r1cs_from_dict`: the ``r1cs_to_dict`` layout (:13-26).
-- witness JSON: a flat list of decimal strings.
+  on their device, in Montgomery form, with one batch inversion per query
+  (Montgomery's trick down 2^16 lanes).  Each reads what the other
+  writes.
 """
 
 import json
@@ -19,12 +30,36 @@ import torch
 from . import resolve_device
 from .bn254 import Fq, Fq2
 from .field import FIELD_MODULUS
-from .ops import curve
-from .ops.fp import MONT_R, ints_to_words_np
+from .ops import curve, fp2
+from .ops.fp import MONT_R, NH, h16_to_words, ints_to_words_np
+from .ops.fp import Fq as FqOps
+from .ops.ntt import bitrev_indices
 from .r1cs import ConstraintSystem, LinearCombination
 
 _PK_MAGIC = b"ETSNARKS-TPU-PK\x01"
+_INV_LANES = 1 << 16     # lanes of the key writer's batch inversion
 _ONE_WORDS = ints_to_words_np([MONT_R % FIELD_MODULUS])[0].view(np.uint32)
+
+
+def r1cs_to_dict(cs):
+    constraints = []
+    for cons in cs.constraints:
+        constraints.append([
+            {str(k): str(v) for k, v in sorted(lc.terms.items())}
+            for lc in (cons.a, cons.b, cons.c)])
+    return {
+        "nPubInputs": cs.num_inputs,
+        "nOutputs": 0,
+        "nVars": cs.num_variables,
+        "nConstraints": cs.num_constraints,
+        "constraints": constraints,
+    }
+
+
+def r1cs2json(cs, path):
+    with open(path, 'w') as fh:
+        json.dump(r1cs_to_dict(cs), fh)
+    return True
 
 
 def r1cs_from_dict(d):
@@ -39,9 +74,145 @@ def r1cs_from_dict(d):
     return cs
 
 
+def witness2json(cs, path):
+    with open(path, 'w') as fh:
+        json.dump([str(v) for v in cs.values], fh)
+    return True
+
+
 def witness_from_json(path):
     with open(path) as fh:
         return [int(v) for v in json.load(fh)]
+
+
+def vk2json_file(vk, path):
+    with open(path, 'w') as fh:
+        fh.write(vk.to_json())
+
+
+def proof_to_json(proof):
+    return proof.to_json()
+
+
+# ---------------- bellman / snarkjs proving-key interop ----------------
+#
+# Keys "A", "B1", "B2", "C" (the aux variables from index 2), "hExps",
+# "vk_alfa_1", "vk_beta_2", "vk_delta_2", "nPublic"; points as arrays of
+# decimal-string coordinates, infinity as the projective [0, 1, 0].
+
+def _bell_g1(pt):
+    vals = [int(c) for c in pt]
+    if len(vals) >= 3 and vals[2] == 0:
+        return None
+    if all(v == 0 for v in vals[:2]):
+        return None
+    if len(vals) >= 3 and vals[2] != 1:
+        zi = pow(vals[2], -1, FIELD_MODULUS)
+        return (Fq(vals[0] * zi), Fq(vals[1] * zi))
+    return (Fq(vals[0]), Fq(vals[1]))
+
+
+def _bell_g2(pt):
+    x = [int(c) for c in pt[0]]
+    y = [int(c) for c in pt[1]]
+    if len(pt) >= 3:
+        z = [int(c) for c in pt[2]]
+        if z == [0, 0]:
+            return None
+        if z != [1, 0]:
+            zi = Fq2(z).inv()
+            return (Fq2(x) * zi, Fq2(y) * zi)
+    return (Fq2(x), Fq2(y))
+
+
+def _bell_dump_g1(pt):
+    if pt is None:
+        return ["0", "1", "0"]
+    return [str(pt[0].n), str(pt[1].n), "1"]
+
+
+def _bell_dump_g2(pt):
+    if pt is None:
+        return [["0", "0"], ["1", "0"], ["0", "0"]]
+    return [[str(pt[0].coeffs[0]), str(pt[0].coeffs[1])],
+            [str(pt[1].coeffs[0]), str(pt[1].coeffs[1])],
+            ["1", "0"]]
+
+
+def pk_to_bellman_dict(pk, num_variables, domain_bitrev):
+    """A nozk :class:`groth16.ProvingKey` in the bellman layout: dense A
+    and B2 over ``num_variables``, B1 all infinity (a nozk key has no B
+    query in G1), C = two pads then the L query, hExps in natural order
+    (``domain_bitrev``: the domain's bit-reversal permutation, a list or
+    tensor).  The query points are read back from their tensors."""
+    a_dense = [None] * num_variables
+    for i, pt in zip(pk.a_idx.tolist(), curve.tensor_to_g1(pk.a_pts)):
+        a_dense[i] = pt
+    b2_dense = [None] * num_variables
+    for i, pt in zip(pk.b_idx.tolist(), curve.tensor_to_g2(pk.b_pts)):
+        b2_dense[i] = pt
+    c_list = [None, None] + curve.tensor_to_g1(pk.l_pts)
+    bitrev = [int(i) for i in (domain_bitrev.tolist() if hasattr(
+        domain_bitrev, 'tolist') else domain_bitrev)]
+    h_bitrev = curve.tensor_to_g1(pk.h_pts)
+    h_natural = [None] * len(h_bitrev)
+    for p, pt in enumerate(h_bitrev):
+        h_natural[bitrev[p]] = pt
+    return {
+        "A": [_bell_dump_g1(p) for p in a_dense],
+        "B1": [_bell_dump_g1(None)] * num_variables,
+        "B2": [_bell_dump_g2(p) for p in b2_dense],
+        "C": [_bell_dump_g1(p) for p in c_list],
+        "hExps": [_bell_dump_g1(p) for p in h_natural],
+        "vk_alfa_1": _bell_dump_g1(pk.alpha_g1),
+        "vk_beta_2": _bell_dump_g2(pk.beta_g2),
+        "vk_delta_2": _bell_dump_g2(pk.delta_g2),
+        "nPublic": pk.num_inputs,
+    }
+
+
+def pk_from_bellman_dict(d, num_inputs=None, device=None):
+    """A bellman / snarkjs key dict -> a nozk :class:`groth16.ProvingKey`
+    on ``device`` (None = the CUDA card): the A and B2 queries sparse
+    (infinity dropped), H padded to a power of two and permuted into the
+    domain's bit-reversed order."""
+    from .groth16 import ProvingKey
+    dev = resolve_device(device)
+    a = [(i, g) for i, g in enumerate(map(_bell_g1, d["A"])) if g is not None]
+    b = [(i, g) for i, g in enumerate(map(_bell_g2, d["B2"]))
+         if g is not None]
+    l_query = [_bell_g1(p) for p in d["C"][2:]]
+    h_natural = [_bell_g1(p) for p in d["hExps"]]
+    m = 1
+    while m < len(h_natural):
+        m *= 2
+    h_natural += [None] * (m - len(h_natural))
+    h_bitrev = [h_natural[j] for j in bitrev_indices(m, 'cpu').tolist()]
+    if num_inputs is None:
+        num_inputs = int(d.get("nPublic", 0))
+
+    def idx(query):
+        return torch.tensor([i for i, _ in query], dtype=torch.int64,
+                            device=dev)
+    return ProvingKey(
+        alpha_g1=_bell_g1(d["vk_alfa_1"]),
+        beta_g2=_bell_g2(d["vk_beta_2"]),
+        delta_g2=_bell_g2(d["vk_delta_2"]),
+        a_idx=idx(a), a_pts=curve.g1_to_tensor([p for _, p in a], dev),
+        b_idx=idx(b), b_pts=curve.g2_to_tensor([p for _, p in b], dev),
+        h_pts=curve.g1_to_tensor(h_bitrev, dev),
+        l_pts=curve.g1_to_tensor(l_query, dev),
+        num_inputs=num_inputs)
+
+
+def pk_bellman2ethsnarks(bellman_pk_file, pk_file, num_inputs=None,
+                         device=None):
+    """A bellman key file -> the binary Montgomery-form key file, through
+    :func:`pk_from_bellman_dict` on ``device`` (None = the CUDA card)."""
+    with open(bellman_pk_file) as fh:
+        d = json.load(fh)
+    write_pk_binary(pk_from_bellman_dict(d, num_inputs, device), pk_file)
+    return True
 
 
 def _unmont(words):
@@ -140,17 +311,56 @@ def _mont_words(coords):
         len(coords[0]), 8 * len(coords))
 
 
+def _inverse_mont(z):
+    """Montgomery inverses of canonical Montgomery h16 values ``z`` (16,
+    n) on their device, zeros staying zero: Montgomery's trick down the
+    rows of a (rows, k) grid of the values (k = min(n, _INV_LANES) lanes
+    a product), then one Fermat power of the k row-end products."""
+    n = z.shape[1]
+    k = min(n, _INV_LANES)
+    rows = -(-n // k)
+    one = FqOps.const_mont(1, z.device)
+    zero = (z == 0).all(0)
+    v = torch.where(zero[None], one, z)
+    v = torch.cat([v, one.expand(NH, rows * k - n)], 1).reshape(NH, rows, k)
+    prefix = torch.empty_like(v)
+    acc = one.expand(NH, k)
+    for r in range(rows):
+        prefix[:, r] = acc
+        acc = FqOps.mul(acc, v[:, r])
+    inv = FqOps.pow_const(acc, FIELD_MODULUS - 2)
+    out = torch.empty_like(v)
+    for r in range(rows - 1, -1, -1):
+        out[:, r] = FqOps.mul(inv, prefix[:, r])
+        inv = FqOps.mul(inv, v[:, r])
+    out = out.reshape(NH, rows * k)[:, :n]
+    return torch.where(zero[None], torch.zeros_like(out), out)
+
+
 def _g1_block(pts):
-    """Projective G1 point tensor -> affine words (n, 16), infinity flags."""
-    xs, ys, inf = curve.affine_ints(pts)
-    return _mont_words([xs, ys]), np.array(inf, dtype=np.uint8)
+    """Projective G1 point tensor -> affine Montgomery words (n, 16) and
+    infinity flags, normalised on the tensor's device (Z = 0: zero words,
+    flag 1)."""
+    if pts.shape[0] == 0:
+        return np.zeros((0, 16), np.uint32), np.zeros(0, np.uint8)
+    X, Y, Z = curve.unpack(pts)
+    zi = _inverse_mont(Z)
+    xy = h16_to_words(torch.stack([FqOps.mul(X, zi), FqOps.mul(Y, zi)], 2))
+    return (xy.reshape(-1, 16).cpu().numpy().view(np.uint32),
+            (Z == 0).all(0).cpu().numpy().astype(np.uint8))
 
 
 def _g2_block(pts):
-    xs, ys, inf = curve.affine_ints(pts, g2=True)
-    return (_mont_words([[x[0] for x in xs], [x[1] for x in xs],
-                         [y[0] for y in ys], [y[1] for y in ys]]),
-            np.array(inf, dtype=np.uint8))
+    """The same on G2: 1 / z = conj(z) / (z0^2 + z1^2)."""
+    if pts.shape[0] == 0:
+        return np.zeros((0, 32), np.uint32), np.zeros(0, np.uint8)
+    X, Y, Z = curve.unpack(pts)
+    z0, z1 = Z[..., 0], Z[..., 1]
+    ni = _inverse_mont(FqOps.add(FqOps.mul(z0, z0), FqOps.mul(z1, z1)))
+    zi = torch.stack([FqOps.mul(z0, ni), FqOps.neg(FqOps.mul(z1, ni))], -1)
+    xy = h16_to_words(torch.stack([fp2.mul(X, zi), fp2.mul(Y, zi)], 2))
+    return (xy.reshape(-1, 32).cpu().numpy().view(np.uint32),
+            (Z == 0).all(0).all(-1).cpu().numpy().astype(np.uint8))
 
 
 def write_pk_binary(pk, path):

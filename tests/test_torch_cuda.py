@@ -398,3 +398,43 @@ def test_eddsa_verify_circuit_proof_on_card(card):
     assert kp.vk.verify(proof)
     assert not kp.vk.verify(Proof(proof.A, proof.B, proof.C,
                                   [other.x.n, other.y.n]))
+
+
+def test_stubs_cycle_on_card(card, tmp_path):
+    """tests/test_stubs.py's circuit through the stubs on the card (their
+    default): the keys and the proof JSON equal the CPU's from the same
+    seeded rng, stub_verify accepts it and refuses a changed input, and
+    stub_test_proof_verify runs on the card."""
+    from ethsnarks_tpu_torch import stubs
+    from ethsnarks_tpu_torch.r1cs import ConstraintSystem
+
+    def circuit():
+        pb = ConstraintSystem()
+        out = pb.allocate('out')
+        pb.set_input_sizes(1)
+        x, sq = pb.allocate('x'), pb.allocate('sq')
+        pb.add_constraint(x, x, sq, 'x*x')
+        pb.add_constraint(sq + x, 1, out, 'sum')
+        for var, val in ((x, 6), (sq, 36), (out, 42)):
+            pb.setval(var, val)
+        return pb
+
+    got = {}
+    for tag, kw in (('card', {}), ('cpu', {'device': 'cpu'})):
+        pb = circuit()
+        rng = random.Random(9009)
+        pk_file, vk_file = tmp_path / (tag + '.pk'), tmp_path / (tag + '.vk')
+        stubs.stub_genkeys_from_pb(
+            pb, str(pk_file), str(vk_file),
+            rng=lambda: rng.randrange(1, SNARK_SCALAR_FIELD), **kw)
+        pk = stubs.load_proving_key(str(pk_file), **kw)
+        ctx = stubs.make_prover_context(pk, pb, use_device_msm=not kw)
+        assert ctx.device.type == ('cpu' if kw else 'cuda')
+        got[tag] = (vk_file.read_bytes(), pk_file.read_bytes(),
+                    stubs.prove(ctx, pb))
+    assert got['card'] == got['cpu']
+    vk_json, proof_json = got['card'][0].decode(), got['card'][2]
+    assert stubs.stub_verify(vk_json, proof_json)
+    assert not stubs.stub_verify(vk_json,
+                                 proof_json.replace('"0x2a"', '"0x2b"'))
+    assert stubs.stub_test_proof_verify(circuit())

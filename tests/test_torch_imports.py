@@ -70,6 +70,26 @@ JUBJUB = [
 ]
 
 
+# the entry points, the key formats and the verifiers beside vk.verify
+ENTRY_POINTS = [
+    "ethsnarks_tpu_torch/cli/__init__.py",
+    "ethsnarks_tpu_torch/cli/proof2sol.py",
+    "ethsnarks_tpu_torch/cli/utils.py",
+    "ethsnarks_tpu_torch/cli/verify.py",
+    "ethsnarks_tpu_torch/cli/vk2sol.py",
+    "ethsnarks_tpu_torch/groth16.py",
+    "ethsnarks_tpu_torch/mimc/__main__.py",
+    "ethsnarks_tpu_torch/pairing.py",
+    "ethsnarks_tpu_torch/pinocchio.py",
+    "ethsnarks_tpu_torch/serialization.py",
+    "ethsnarks_tpu_torch/shamirspoly.py",
+    "ethsnarks_tpu_torch/stubs.py",
+    "ethsnarks_tpu_torch/utils/__init__.py",
+    "ethsnarks_tpu_torch/utils/profiling.py",
+    "ethsnarks_tpu_torch/verifier.py",
+]
+
+
 def test_port_has_modules():
     assert len(_sources()) >= 15
 
@@ -86,6 +106,11 @@ def test_hash_circuit_modules_present(relpath):
 
 @pytest.mark.parametrize("relpath", JUBJUB)
 def test_jubjub_modules_present(relpath):
+    assert relpath in _sources()
+
+
+@pytest.mark.parametrize("relpath", ENTRY_POINTS)
+def test_entry_point_modules_present(relpath):
     assert relpath in _sources()
 
 

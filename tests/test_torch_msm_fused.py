@@ -181,7 +181,8 @@ def test_fused_prover_fixture_proof_matches_stored():
     with open(os.path.join(FIXTURE, "r1cs.json")) as fh:
         cs = r1cs_from_dict(json.load(fh))
     ctx = ProverContext(read_pk_binary(os.path.join(FIXTURE, "pk.bin"),
-                                       'cpu'), cs, 'cpu', msm_impl='fused')
+                                       'cpu'), cs, device='cpu',
+                        msm_impl='fused')
     proof = ctx.prove(witness_from_json(os.path.join(FIXTURE,
                                                      "witness.json")))
     with open(os.path.join(FIXTURE, "proof.json")) as fh:
@@ -191,4 +192,4 @@ def test_fused_prover_fixture_proof_matches_stored():
 
 def test_prover_rejects_unknown_msm_impl():
     with pytest.raises(ValueError):
-        ProverContext(None, None, 'cpu', msm_impl='pallas')
+        ProverContext(None, None, device='cpu', msm_impl='pallas')

@@ -275,7 +275,8 @@ def test_generic_prover_fixture_proof_matches_stored():
     with open(os.path.join(FIXTURE, "r1cs.json")) as fh:
         cs = r1cs_from_dict(json.load(fh))
     ctx = ProverContext(read_pk_binary(os.path.join(FIXTURE, "pk.bin"),
-                                       'cpu'), cs, 'cpu', msm_impl='generic')
+                                       'cpu'), cs, device='cpu',
+                        msm_impl='generic')
     proof = ctx.prove(witness_from_json(os.path.join(FIXTURE,
                                                      "witness.json")))
     with open(os.path.join(FIXTURE, "proof.json")) as fh:

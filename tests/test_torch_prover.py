@@ -40,7 +40,7 @@ def cubic(tmp_path_factory):
 def test_cubic_proof_matches_reference_and_verifies(cubic):
     pb, keypair, path = cubic
     ctx = ProverContext(read_pk_binary(path, 'cpu'),
-                        r1cs_from_dict(r1cs_to_dict(pb)), 'cpu')
+                        r1cs_from_dict(r1cs_to_dict(pb)), device='cpu')
     got = ctx.prove(pb.values).to_json()
     want = RefContext(keypair.pk, pb, use_device_msm=False).prove(
         pb.values).to_json()
@@ -54,7 +54,7 @@ def test_fixture_proof_matches_stored():
     with open(os.path.join(FIXTURE, "r1cs.json")) as fh:
         cs = r1cs_from_dict(json.load(fh))
     ctx = ProverContext(read_pk_binary(os.path.join(FIXTURE, "pk.bin"),
-                                       'cpu'), cs, 'cpu')
+                                       'cpu'), cs, device='cpu')
     proof = ctx.prove(witness_from_json(os.path.join(FIXTURE,
                                                      "witness.json")))
     with open(os.path.join(FIXTURE, "proof.json")) as fh:
@@ -93,7 +93,7 @@ def test_blind_not_ported(cubic):
     too."""
     pb, _, path = cubic
     ctx = ProverContext(read_pk_binary(path, 'cpu'),
-                        r1cs_from_dict(r1cs_to_dict(pb)), 'cpu')
+                        r1cs_from_dict(r1cs_to_dict(pb)), device='cpu')
     assert not ctx.pk.has_zk_extras
     with pytest.raises(ValueError):
         ctx.prove(pb.values, blind=True)
@@ -106,7 +106,7 @@ def test_config_multi_exp_c_sets_every_window(cubic):
     stays the reference's."""
     pb, keypair, path = cubic
     ctx = ProverContext(read_pk_binary(path, 'cpu'),
-                        r1cs_from_dict(r1cs_to_dict(pb)), 'cpu',
+                        r1cs_from_dict(r1cs_to_dict(pb)), device='cpu',
                         config=Config(multi_exp_c=9))
     assert ctx.c == dict(h=9, a=9, b=9, l=9)
     want = RefContext(keypair.pk, pb, use_device_msm=False).prove(pb.values)

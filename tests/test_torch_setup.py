@@ -91,7 +91,8 @@ def test_instance_map_matches_reference(keys):
 
 def test_port_proof_verifies_under_both_verifiers(keys):
     pb, cs, want, got = keys
-    proof = ProverContext(got.pk, cs, 'cpu', qap=got.qap).prove(pb.values)
+    proof = ProverContext(got.pk, cs, device='cpu',
+                          qap=got.qap).prove(pb.values)
     assert got.vk.verify(proof)
     assert want.vk.verify(RefProof.from_json(proof.to_json()))
     assert RefVerifyingKey.from_json(got.vk.to_json()).verify(

@@ -65,7 +65,7 @@ def zk():
     assert pb.values == ref_pb.values
     want = ref_generator(ref_pb, rng=_rng(77), device_exp=False, zk=True)
     got = generator(pb, rng=_rng(77), device='cpu', zk=True)
-    ctx = ProverContext(got.pk, pb, 'cpu', qap=got.qap)
+    ctx = ProverContext(got.pk, pb, device='cpu', qap=got.qap)
     blinder = _rng(99)
     blinded = [ctx.prove(pb.values, blind=True, rng=blinder)
                for _ in range(2)]
@@ -130,7 +130,7 @@ def test_nozk_key_rejects_blinding(zk):
     assert not kp.pk.has_zk_extras
     # the same draws: the nozk key is the zk key without its extras
     assert kp.vk.to_json() == got.vk.to_json()
-    ctx = ProverContext(kp.pk, pb, 'cpu', qap=kp.qap)
+    ctx = ProverContext(kp.pk, pb, device='cpu', qap=kp.qap)
     with pytest.raises(ValueError):
         ctx.prove(pb.values, blind=True)
 
