@@ -65,6 +65,11 @@ Phases (any mismatch fails the run with a non-zero exit):
    (msm_impl 'fused': must take the dense route and launch K1, K5 and K3
    of its group and no other) and the scan MSM (msm_impl 'generic': K6,
    K5, K2 (once a window, n = c) and K1), against the same oracle, timed.
+5c. the same 2^20 G1 MSM on a mesh of MESH_SHARDS virtual shards of the
+   card (``make_mesh(devices=[DEV] * 4)``): through ``ShardedRedMSM``
+   (each shard's red MSM, the partials added by K1: K1 and K3 G1 only)
+   and ``make_sharded_msm`` (each shard's scan MSM: K6, K5, K2 (once a
+   window a shard) and K1 G1), each equal to the oracle, timed.
 6. setup -> prove -> verify: the 261,353-constraint MiMC-e7 chain of
    tools/bench_prove.py:build_circuit(18) (m = 2^18; CHAIN_LOG, cut from
    2^20 so that the script stays inside its time limit with phases 8b and
@@ -107,6 +112,15 @@ Phases (any mismatch fails the run with a non-zero exit):
    ``make -C native``) and ``python -m ethsnarks_tpu_torch.cli.verify``
    must each accept the proof and refuse it with the root changed;
    ``vk_to_sol`` and ``proof_to_sol`` must give Solidity.
+8c. the flagship on a mesh, before phase 8 frees it: ``make_mesh(devices=
+   [DEV] * 4)`` and ``ProverContext(kp.pk, cs, mesh=..., qap=kp.qap)``
+   (setup seconds), one proof equal to the 'red' proof's JSON, launching
+   K1 and K3 of both groups and no other kernel, passing vk.verify (its
+   spans printed, the NTT's cross-stage seconds among them).  With more
+   than one card, once more on a mesh of the cards (a power of two of
+   them).  Then ``evm_merkle.verify_path_evm`` (the MerkleTree.sol
+   VerifyPath twin at depth 29) must give the root for one of the 48
+   paths and another root with one sibling changed.
 9. the SHA-256 preimage (bench_workloads' sha256_preimage row):
    BatchSha256(1, 512) of bytes(range(64)) must have 60,131 constraints
    (domain 2^16); the witness (the batched SHA-256 trace on the card, which
@@ -132,6 +146,11 @@ Phases (any mismatch fails the run with a non-zero exit):
    the batched verify ops on that seed's first 4 signatures: the affine
    lhs = s B, the Pedersen hash's x and rhs = R + t A, read back with
    ``device_to_points``, must equal the host's, and every lane accept.
+   Last, ``evm_jubjub.eddsa_verify_evm`` (the EdDSA.sol twin: t =
+   sha256(R, A, M) masked to 250 bits, s B == t A) must accept the first
+   signature's key, R and message signed under the contract's rule with
+   that key's secret (from the same seeded draws), and refuse it with the
+   next signature's key.
 12. a Pinocchio circuit through its command line: a generated ``.arith``
    circuit (``pinocchio_circuit``, seeded from SEED: 2,048 blocks of every
    opcode the reader knows, tables of 1, 2 and 3 bits, input, nizkinput
@@ -145,7 +164,7 @@ Phases (any mismatch fails the run with a non-zero exit):
    the card; K4, K1 and K3 must launch).  The launching subprocesses run
    the module as ``__main__`` under a wrapper that prints the launch
    counts at exit; they, and phase 8b's stubs.prove, are the ``entry``
-   path of the kernels line.
+   path of the kernels line, and phases 5c and 8c its ``mesh`` path.
 
 Launch counts are reset just before and read just after each path.  The
 last lines are a JSON ``kernels`` record, the nvidia-smi line, and
@@ -153,6 +172,7 @@ last lines are a JSON ``kernels`` record, the nvidia-smi line, and
 """
 
 import gc
+import hashlib
 import json
 import os
 import random
@@ -168,7 +188,7 @@ import numpy as np
 import torch
 
 from ethsnarks_tpu_torch import bench, bench_merkle, bench_workloads, bn254, \
-    probe, stubs
+    evm_jubjub, evm_merkle, probe, stubs
 from ethsnarks_tpu_torch.cli.proof2sol import proof_to_sol
 from ethsnarks_tpu_torch.cli.vk2sol import vk_to_sol
 from ethsnarks_tpu_torch.cost import FQ_MUL_IMAD, IMAD_PER_S, OP_IMAD, \
@@ -188,6 +208,10 @@ from ethsnarks_tpu_torch.ops.batch_exp import BatchExp, C, N_WIN
 from ethsnarks_tpu_torch.ops.fp import Fq, Fr, words_to_h16, \
     ints_to_words_np, words_to_ints, h16_to_words
 from ethsnarks_tpu_torch.ops.ntt import NttDomain
+from ethsnarks_tpu_torch.jubjub import JUBJUB_L
+from ethsnarks_tpu_torch.parallel import make_mesh
+from ethsnarks_tpu_torch.parallel.msm_red_sharded import get_sharded_msm
+from ethsnarks_tpu_torch.parallel.msm_sharded import make_sharded_msm
 from ethsnarks_tpu_torch.pinocchio import CircuitReader
 from ethsnarks_tpu_torch.poseidon import poseidon
 from ethsnarks_tpu_torch.qap import h_coefficients
@@ -220,6 +244,7 @@ EDDSA_LOG = 13
 EDDSA_LANES = 4                 # the batched verify's intermediates
 PINOCCHIO_BLOCKS = 2048         # 27 constraints a block: 55,296, m = 2^16
 PINOCCHIO_LOG = 16
+MESH_SHARDS = 4                 # phases 5c and 8c: virtual shards on DEV
 
 
 def log(*args):
@@ -786,6 +811,63 @@ def phase_msm_routes(g2, points, words, want, reps=2):
                                             counts[0].items() if v})))
         out[impl] = {"c": c, "route": route, "seconds": times,
                      "points_per_s": n / best, "launches": counts[0]}
+    return out
+
+
+def phase_msm_mesh(points, words, want, reps=2):
+    """5c: the 2^20 G1 MSM of phase 5 on MESH_SHARDS virtual shards of the
+    card, through ShardedRedMSM and make_sharded_msm (window bits as the
+    mesh prover picks them: best_c of a shard's points)."""
+    n = points.shape[0]
+    t0 = time.perf_counter()
+    mesh = make_mesh(devices=[DEV] * MESH_SHARDS)
+    c = msm.best_c(-(-n // MESH_SHARDS))
+    red = get_sharded_msm(mesh, n, c)
+    shards = red.shard_points(points)
+    scan = make_sharded_msm(mesh, "g1", c)
+    digits = msm.window_digits(words, c)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    nw = digits.shape[0]
+    k1, k2, k3 = kernels.POINT_ADD[False], kernels.POINT_DOUBLE[False], \
+        kernels.HORNER[False]
+    expect = {
+        "red": ({k1, k3}, {k3.name: 2 * MESH_SHARDS}),
+        "scan": ({kernels.SEG_SCAN[False], kernels.BUCKET_FOLD[False], k2,
+                  k1}, {k2.name: (nw - 1) * MESH_SHARDS})}
+    run = {"red": lambda: red(shards, digits),
+           "scan": lambda: msm_scan.to_host(scan(shards, digits), False)}
+    out = {"shards": MESH_SHARDS, "c": c, "setup_seconds": t_setup}
+    for name in ("red", "scan"):
+        times, counts = [], []
+        for rep in range(reps + 1):
+            kernels.reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = run[name]()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            counts.append(launch_counts())
+            if got != want:
+                fail("G1 MSM 2^%d on %d shards (%s) differs from the "
+                     "class-sum oracle" % (FULL_LOG, MESH_SHARDS, name))
+        ran = {k for k in kernels.ALL if counts[0][k.name]}
+        kinds, exact = expect[name]
+        if ran != kinds or any(counts[0][k] != v for k, v in exact.items()):
+            fail("G1 MSM on %d shards (%s) launched %s; expected %s, %s" % (
+                MESH_SHARDS, name, json.dumps({k: v for k, v in
+                                               counts[0].items() if v}),
+                sorted(k.name for k in kinds), exact))
+        best = min(times[1:])
+        log("  G1 MSM 2^%d on %d shards, %s (c=%d): exact; times %s s; min "
+            "%.4f s = %.1f points/s; launches %s" % (
+                FULL_LOG, MESH_SHARDS, name, c, [round(t, 4) for t in times],
+                best, n / best, json.dumps({k: v for k, v in
+                                            counts[0].items() if v})))
+        out[name] = {"seconds": times, "points_per_s": n / best,
+                     "launches": counts[0]}
+    log("  mesh and shards (make_mesh, the red MSM's point shards, digits):"
+        " %.3f s" % t_setup)
     return out
 
 
@@ -1631,8 +1713,15 @@ def phase_merkle():
         "refuses it with the root changed (%.2f s); host peak RSS %.2f GB"
         % (len(proofs), t_verify, t_evm, host_rss_gb()))
     entry = phase_merkle_entry(kp, cs, proofs[0])
+    mesh = {"virtual": phase_merkle_mesh(kp, cs, proofs[0],
+                                         [DEV] * MESH_SHARDS)}
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:
+        mesh["cards"] = phase_merkle_mesh(
+            kp, cs, proofs[0], list(range(1 << (n_cards.bit_length() - 1))))
+    mesh["evm_path"] = merkle_path_evm(tree, n_proofs)
     return {"constraints": cs.num_constraints, "m": kp.qap.domain_size,
-            "entry": entry,
+            "entry": entry, "mesh": mesh,
             "build_seconds": t_build, "tree_seconds": t_tree,
             "witness_seconds": t_witness,
             "trace_seconds": model.trace_seconds,
@@ -1641,6 +1730,68 @@ def phase_merkle():
             "proofs": runs, "prove_launches": launches,
             "verify_seconds": t_verify, "evm_seconds": t_evm,
             "host_peak_rss_gb": host_rss_gb()}
+
+
+# ---------------------------------------------------------------- phase 8c
+
+def phase_merkle_mesh(kp, cs, proof, devices):
+    """8c: one proof of the flagship from a mesh context on ``devices``; it
+    must equal the 'red' ``proof``, launch K1 and K3 of both groups only and
+    pass vk.verify."""
+    log("== phase 8c: the flagship on a mesh of %s" % devices)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mesh = make_mesh(devices=devices)
+    ctx = ProverContext(kp.pk, cs, mesh=mesh, qap=kp.qap)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    got = ctx.prove(cs.values)
+    dt = time.perf_counter() - t0
+    launches = launch_counts()
+    check_red_launches(launches, "the flagship's mesh proof")
+    if got.to_json() != proof.to_json():
+        fail("the flagship's mesh proof differs from its 'red' proof")
+    t0 = time.perf_counter()
+    if not kp.vk.verify(got):
+        fail("the flagship's mesh proof does not verify")
+    t_verify = time.perf_counter() - t0
+    log("  make_mesh + ProverContext(mesh=..., qap=kp.qap) %.3f s (c = %s); "
+        "proof %.3f s, JSON equal to the 'red' proof, vk.verify %.2f s; "
+        "phases %s; launches %s; host peak RSS %.2f GB" % (
+            t_setup, ctx.c, dt, t_verify, json.dumps(
+                {k: round(v, 4) for k, v in ctx.last_profile.items()}),
+            json.dumps({k: v for k, v in launches.items() if v}),
+            host_rss_gb()))
+    out = {"devices": [str(d) for d in mesh], "setup_seconds": t_setup,
+           "seconds": dt, "profile": ctx.last_profile, "c": ctx.c,
+           "launches": launches, "verify_seconds": t_verify}
+    del ctx
+    torch.cuda.empty_cache()
+    return out
+
+
+def merkle_path_evm(tree, n_proofs):
+    """The first of the flagship's paths through the VerifyPath bytecode
+    twin: its root, and another root with one sibling changed."""
+    idx = bench_merkle.proof_indices(n_proofs, bench_merkle.N_LEAVES)[0]
+    path = tree.proof(idx)
+    t0 = time.perf_counter()
+    root = evm_merkle.verify_path_evm(tree[idx], path.path, path.address)
+    bad = list(path.path)
+    bad[0] = (bad[0] + 1) % SNARK_SCALAR_FIELD
+    root_bad = evm_merkle.verify_path_evm(tree[idx], bad, path.address)
+    dt = time.perf_counter() - t0
+    if root != tree.root:
+        fail("the VerifyPath twin gives another root for leaf %d" % idx)
+    if root_bad == tree.root:
+        fail("the VerifyPath twin accepts leaf %d with a sibling changed"
+             % idx)
+    log("  VerifyPath twin (depth %d, leaf %d): the root, and another with "
+        "one sibling changed (%.2f s for both)" % (len(path.path), idx, dt))
+    return {"leaf": idx, "seconds": dt}
 
 
 # ---------------------------------------------------------------- phase 8b
@@ -2153,7 +2304,40 @@ def phase_eddsa():
             "setup_launches": setup_launches, "proofs": runs,
             "prove_launches": launches, "verify_seconds": t_verify,
             "evm_seconds": t_evm, "batch_lanes": len(sigs),
-            "batch_seconds": t_parts, "host_peak_rss_gb": host_rss_gb()}
+            "batch_seconds": t_parts, "evm": eddsa_evm(sigs),
+            "host_peak_rss_gb": host_rss_gb()}
+
+
+def eddsa_evm(sigs):
+    """The EdDSA.sol twin on the first signature's key, R and message,
+    signed under the contract's rule (s = t k, t = sha256(R, A, M) masked
+    to 250 bits; the circuit's PureEdDSA hashes with Pedersen and checks
+    s B = R + t A instead) with the key's secret k, drawn as
+    ``bench_workloads.eddsa_signatures`` draws it; then with the next
+    signature's key."""
+    A, (R, _), msg = sigs[0]
+    k = int.from_bytes(np.random.default_rng(bench_workloads.EDDSA_SEED)
+                       .bytes(32), 'little') % (JUBJUB_L - 1) + 1
+    if PureEdDSA.B() * k != A:
+        fail("the first eddsa16k key is not k B")
+    m = int.from_bytes(msg, 'big')
+    t = int.from_bytes(hashlib.sha256(b''.join(
+        v.to_bytes(32, 'big') for v in (R.x.n, R.y.n, A.x.n, A.y.n, m)))
+        .digest(), 'big') & evm_jubjub.MASK_250
+    s = t * k % JUBJUB_L
+    t0 = time.perf_counter()
+    good = evm_jubjub.eddsa_verify_evm((A.x.n, A.y.n), m, (R.x.n, R.y.n), s)
+    A1 = sigs[1][0]
+    bad = evm_jubjub.eddsa_verify_evm((A1.x.n, A1.y.n), m, (R.x.n, R.y.n),
+                                      s)
+    dt = time.perf_counter() - t0
+    if not good:
+        fail("the EdDSA.sol twin refuses the first key's signature")
+    if bad:
+        fail("the EdDSA.sol twin accepts the signature with the next key")
+    log("  EdDSA.sol twin: accepts the first key's signature, refuses it "
+        "with the next key (%.2f s for both)" % dt)
+    return {"seconds": dt}
 
 
 # ---------------------------------------------------------------- main
@@ -2221,6 +2405,10 @@ def main():
         full[tag], inputs = phase_msm(g2, rng)
         log("== phase 5b: %s through the dense and scan drivers" % tag)
         full[tag + "_routes"] = phase_msm_routes(g2, *inputs)
+        if not g2:
+            log("== phase 5c: msm_g1 on a mesh of %d virtual shards"
+                % MESH_SHARDS)
+            full["msm_g1_mesh"] = phase_msm_mesh(*inputs)
         del inputs
         torch.cuda.empty_cache()
     full["transform"] = phase_transform(rng)
@@ -2263,6 +2451,12 @@ def main():
             by_path["prove_%s_%s" % (tag, impl)] = counts
     for impl, r in path["msm_impls"].items():
         by_path["prove_%s_%s" % (chain, impl)] = r["launches"]
+    # the mesh path: 5c's sharded MSMs (one run each) and 8c's proofs
+    by_path["mesh"] = add_counts(
+        full["msm_g1_mesh"]["red"]["launches"],
+        full["msm_g1_mesh"]["scan"]["launches"],
+        *[r["launches"] for key, r in merkle["mesh"].items()
+          if key != "evm_path"])
     for tag in ("msm_g1", "msm_g2"):
         for impl, r in full[tag + "_routes"].items():
             by_path["%s_2^20_%s" % (tag, impl)] = r["launches"]

@@ -11,9 +11,13 @@ One proof: one witness upload, the witness map (:mod:`.qap`), window digits
 of H and of the witness columns of the A, B and L queries, four Pippenger
 MSMs (H, A and L in G1, B in G2) on the hand-written kernels, by the MSM
 design that ``msm_impl`` names (:class:`ProverContext`), and host
-finalisation (alpha + A, beta + B, H + L).  nozk proofs carry no blinding
-and are deterministic: the same witness gives the reference host prover's
-exact proof, whatever the MSM design.
+finalisation (alpha + A, beta + B, H + L).  With a mesh (the counterpart
+of ``_prepare_mesh_keys`` and of the mesh branch of ``prove``, :313-398,
+:660-680) every query is split over the mesh's devices, the witness map
+runs on row chunks (:mod:`.parallel.qap_sharded`) and each MSM on the
+shards with a K1 combine (:mod:`.parallel.msm_red_sharded`).  nozk proofs
+carry no blinding and are deterministic: the same witness gives the
+reference host prover's exact proof, whatever the MSM design or mesh.
 
 The zk form: ``generator(zk=True)`` also keeps delta and beta in G1 and
 the B query in G1 (one more K4 G1 batch), and ``prove(blind=True)`` adds
@@ -33,6 +37,9 @@ from .ops import curve, msm_dense, msm_scan
 from .ops.batch_exp import BatchExp
 from .ops.fp import ints_to_words_np
 from .ops.msm import best_c, msm_g1, msm_g2, window_digits
+from .parallel.mesh import Mesh, normalise, on
+from .parallel.msm_red_sharded import get_sharded_msm
+from .parallel.qap_sharded import ShardedWitnessMap
 from .qap import QAP
 from .verifier import Proof, VerifyingKey
 
@@ -127,13 +134,14 @@ class Keypair(object):
         self.qap = qap
 
 
-def _marker(device):
-    """mark(name) appends (name, time), synchronising the card first."""
+def _marker(*devices):
+    """mark(name) appends (name, time), synchronising the cards first."""
     marks = []
 
     def mark(name):
-        if device.type == 'cuda':
-            torch.cuda.synchronize(device)
+        for device in devices:
+            if device.type == 'cuda':
+                torch.cuda.synchronize(device)
         marks.append((name, time.perf_counter()))
     return marks, mark
 
@@ -235,23 +243,42 @@ class ProverContext(object):
     use_device_msm: True runs on ``device`` (None: the CUDA card, which
     raises without one); False is the caller asking for the CPU, the
     reference's host oracle: the plain versions of the kernels run there,
-    and a CUDA ``device`` with it raises ValueError.  mesh: the
-    multi-device prover is not ported (ROADMAP #11); anything but None
-    raises NotImplementedError."""
+    and a CUDA ``device`` with it raises ValueError.
+
+    mesh: a :class:`.parallel.mesh.Mesh` (``parallel.make_mesh``) proves
+    on its devices: the A, B, L and H queries (and the zk key's B query in
+    G1) are split over them with one red MSM of shards each
+    (:class:`.parallel.msm_red_sharded.ShardedRedMSM`, window bits
+    ``config.multi_exp_c`` or ``best_c`` of a shard's points), and the
+    witness map is a :class:`.parallel.qap_sharded.ShardedWitnessMap` (a
+    ``qap`` given must lie on the mesh's first device).  ``device=`` must
+    then be None, msm_impl 'auto' or 'red', and ``use_device_msm=False``
+    takes a mesh of CPU devices only (ValueError otherwise); a mesh of CPU
+    devices is how the tests ask for the CPU."""
 
     def __init__(self, pk, cs, use_device_msm=True, config=None,
                  msm_impl='auto', mesh=None, *, device=None, qap=None):
         if msm_impl not in MSM_IMPLS:
             raise ValueError("msm_impl %r: one of %s"
                              % (msm_impl, ", ".join(MSM_IMPLS)))
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh: the multi-device prover is not ported yet "
-                "(ROADMAP #11)")
         if isinstance(use_device_msm, (str, torch.device)):
             raise TypeError("use_device_msm is a bool; pass the device as "
                             "device=%r" % (use_device_msm,))
-        if not use_device_msm:
+        if mesh is not None:
+            if not isinstance(mesh, Mesh):
+                raise TypeError("mesh: a parallel.mesh.Mesh (make_mesh), "
+                                "not %r" % (mesh,))
+            if device is not None:
+                raise ValueError("with a mesh the devices are the mesh's; "
+                                 "device=%r" % (device,))
+            if msm_impl not in ('auto', 'red'):
+                raise ValueError("the mesh prover runs the red MSM; "
+                                 "msm_impl=%r" % (msm_impl,))
+            if not use_device_msm and any(d.type != 'cpu' for d in mesh):
+                raise ValueError("use_device_msm=False asks for the CPU, "
+                                 "but the mesh is %r" % (mesh,))
+            device = mesh.devices[0]
+        elif not use_device_msm:
             if device is None:
                 device = 'cpu'
             elif torch.device(device).type != 'cpu':
@@ -259,9 +286,12 @@ class ProverContext(object):
                                  "but device=%r" % (device,))
         self.msm_impl = msm_impl
         self.config = config or Config()
+        self.mesh = mesh
         self.device = resolve_device(device)
-        self.pk = pk.to(self.device)
-        if qap is not None and qap.device != self.device:
+        # a mesh splits the key's queries from wherever they lie
+        self.pk = pk if mesh is not None else pk.to(self.device)
+        if qap is not None and normalise(qap.device) != normalise(
+                self.device):
             raise ValueError("QAP compiled for %s, context on %s"
                              % (qap.device, self.device))
         self.qap = qap if qap is not None else QAP(cs, self.device)
@@ -270,14 +300,37 @@ class ProverContext(object):
                              % (self.pk.h_pts.shape[0], self.qap.domain_size))
         ni, nv = pk.num_inputs, self.qap.num_variables
         self.l_idx = torch.arange(ni + 1, nv, device=self.device)
+        shards = 1 if mesh is None else len(mesh)
         pick = (lambda n: self.config.multi_exp_c) \
-            if self.config.multi_exp_c else best_c
+            if self.config.multi_exp_c else \
+            (lambda n: best_c(-(-n // shards)))
         self.c = dict(h=pick(self.qap.domain_size),
                       a=pick(self.pk.a_idx.shape[0]),
                       b=pick(self.pk.b_idx.shape[0]),
                       l=pick(nv - ni - 1))
         self.last_profile = None
         self.last_routes = None
+        if mesh is not None:
+            self._prepare_mesh()
+
+    def _prepare_mesh(self):
+        """The queries' shards, one sharded red MSM a query, the column
+        indices of A, B and L split the same way, the sharded witness
+        map."""
+        pk, mesh = self.pk, self.mesh
+        self._mesh_msm = {}
+        for name, pts, g2, _ in self._queries(pk.b1_pts is not None):
+            msm_ = get_sharded_msm(mesh, pts.shape[0], self.c[name[0]], g2)
+            self._mesh_msm[name] = (msm_, msm_.shard_points(pts))
+        self._mesh_idx = {
+            name: [i.to(dev) for i, dev in zip(
+                torch.tensor_split(idx, len(mesh)), mesh)]
+            for name, idx in (('a', pk.a_idx), ('b', pk.b_idx),
+                              ('l', self.l_idx))}
+        self._wm = ShardedWitnessMap(self.qap, mesh)
+        if [h.shape[0] for h in self._mesh_msm['h'][1]] != \
+                [self._wm.chunk] * len(mesh):
+            raise ValueError("H query shards do not match the domain's")
 
     def _msm(self, points, digits, c, g2):
         """One MSM by ``msm_impl`` -> (host affine point, route)."""
@@ -302,7 +355,7 @@ class ProverContext(object):
         + r B1 - r s delta, with B1 = beta + the B query in G1 (a fifth
         MSM).  Needs a key from ``generator(zk=True)``: ValueError on a
         nozk key."""
-        pk, c = self.pk, self.c
+        pk = self.pk
         if blind and not pk.has_zk_extras:
             raise ValueError(
                 "blind=True needs a zk-form key: generate with "
@@ -313,44 +366,90 @@ class ProverContext(object):
         if len(w) != self.qap.num_variables or w[0] != 1:
             raise ValueError("witness must hold %d values starting with 1"
                              % self.qap.num_variables)
-        marks, mark = _marker(self.device)
+        devices = [self.device] if self.mesh is None else \
+            self.mesh.distinct()
+        marks, mark = _marker(*devices)
         mark('start')
-        w_words = torch.from_numpy(ints_to_words_np(w)).to(self.device)
-        mark('witness_upload')
-        h = self.qap.witness_map(w_words)
-        mark('witness_map')
-        h_d = window_digits(h, c['h'])
-        a_d = window_digits(w_words[pk.a_idx], c['a'])
-        b_d = window_digits(w_words[pk.b_idx], c['b'])
-        l_d = window_digits(w_words[self.l_idx], c['l'])
-        mark('digits')
-        routes = {}
-        h_eval, routes['h'] = self._msm(pk.h_pts, h_d, c['h'], False)
-        mark('h_msm')
-        a_eval, routes['a'] = self._msm(pk.a_pts, a_d, c['a'], False)
-        mark('a_msm')
-        b_eval, routes['b'] = self._msm(pk.b_pts, b_d, c['b'], True)
-        mark('b_msm_g2')
-        l_eval, routes['l'] = self._msm(pk.l_pts, l_d, c['l'], False)
-        mark('l_msm')
-        g_a = add(pk.alpha_g1, a_eval)
-        g_b = add(pk.beta_g2, b_eval)
-        g_c = add(h_eval, l_eval)
+        run = self._evals if self.mesh is None else self._evals_mesh
+        evals, routes, extra = run(w, blind, mark)
+        g_a = add(pk.alpha_g1, evals['a'])
+        g_b = add(pk.beta_g2, evals['b'])
+        g_c = add(evals['h'], evals['l'])
         if blind:
-            b1_eval, routes['b1'] = self._msm(pk.b1_pts, b_d, c['b'], False)
-            mark('b1_msm')
             rng = rng or (lambda: secrets.randbelow(P - 1) + 1)
             r, s = rng(), rng()
-            g_b1 = add(add(pk.beta_g1, b1_eval), multiply(pk.delta_g1, s))
+            g_b1 = add(add(pk.beta_g1, evals['b1']),
+                       multiply(pk.delta_g1, s))
             g_a = add(g_a, multiply(pk.delta_g1, r))
             g_b = add(g_b, multiply(pk.delta_g2, s))
             g_c = add(g_c, add(multiply(g_a, s), add(
                 multiply(g_b1, r), neg(multiply(pk.delta_g1, r * s % P)))))
         proof = Proof(A=g_a, B=g_b, C=g_c, input=w[1:1 + ni])
         mark('finalise')
-        self.last_profile = _spans(marks)
+        self.last_profile = dict(_spans(marks), **extra)
         self.last_routes = routes
         return proof
+
+    def _evals(self, w, blind, mark):
+        """One device: the upload, the witness map, the digits and the
+        MSMs -> ({query: host point}, routes, {})."""
+        pk, c = self.pk, self.c
+        w_words = torch.from_numpy(ints_to_words_np(w)).to(self.device)
+        mark('witness_upload')
+        h = self.qap.witness_map(w_words)
+        mark('witness_map')
+        digits = dict(h=window_digits(h, c['h']),
+                      a=window_digits(w_words[pk.a_idx], c['a']),
+                      b=window_digits(w_words[pk.b_idx], c['b']),
+                      l=window_digits(w_words[self.l_idx], c['l']))
+        mark('digits')
+        evals, routes = {}, {}
+        for name, pts, g2, span in self._queries(blind):
+            evals[name], routes[name] = self._msm(
+                pts, digits[name[0]], c[name[0]], g2)
+            mark(span)
+        return evals, routes, {}
+
+    def _evals_mesh(self, w, blind, mark):
+        """The mesh branch: one witness upload a device, the sharded
+        witness map, every shard's digits on its device (H from its own H
+        shard, never gathered), the sharded MSMs -> (points, routes,
+        {'exchange': seconds in the NTT's cross stages})."""
+        mesh, c = self.mesh, self.c
+        w_np = ints_to_words_np(w)
+        w_dev = {dev: torch.from_numpy(w_np).to(dev)
+                 for dev in mesh.distinct()}
+        mark('witness_upload')
+        before = self._wm.dom.exchange_seconds
+        h = self._wm(w_dev)
+        mark('witness_map')
+        exchange = self._wm.dom.exchange_seconds - before
+        digits = {'h': [], 'a': [], 'b': [], 'l': []}
+        for d, dev in enumerate(mesh):
+            with on(dev):
+                digits['h'].append(window_digits(h[d], c['h']))
+                for name in 'abl':
+                    digits[name].append(window_digits(
+                        w_dev[dev][self._mesh_idx[name][d]], c[name]))
+        mark('digits')
+        evals = {}
+        for name, _, _, span in self._queries(blind):
+            msm_, shards = self._mesh_msm[name]
+            evals[name] = msm_(shards, digits[name[0]])
+            mark(span)
+        return evals, {name: 'mesh' for name in evals}, \
+            {'exchange': exchange}
+
+    def _queries(self, blind):
+        """(name, points, g2, span) of each MSM of a proof, in order."""
+        pk = self.pk
+        out = [('h', pk.h_pts, False, 'h_msm'), ('a', pk.a_pts, False,
+                                                 'a_msm'),
+               ('b', pk.b_pts, True, 'b_msm_g2'),
+               ('l', pk.l_pts, False, 'l_msm')]
+        if blind:
+            out.append(('b1', pk.b1_pts, False, 'b1_msm'))
+        return out
 
 
 def prove(context, witness_values):

@@ -41,13 +41,26 @@ def mimc_constants(seed=DEFAULT_SEED, p=SNARK_SCALAR_FIELD, R=DEFAULT_ROUNDS):
         yield seed
 
 
-def constants_list(seed=DEFAULT_SEED, p=SNARK_SCALAR_FIELD, R=DEFAULT_ROUNDS):
-    """The round constants as a list, cached per (seed, p, R)."""
+def _constants_list(seed, p, R):
+    """The round constants as a list, cached per (seed, p, R)
+    (``ethsnarks_tpu/mimc/permutation.py:53``); an unhashable seed is
+    computed each time."""
     key = (bytes(seed) if isinstance(seed, (bytes, bytearray)) else seed,
            p, R)
-    if key not in _constants_cache:
-        _constants_cache[key] = list(mimc_constants(seed, p, R))
-    return _constants_cache[key]
+    try:
+        return _constants_cache[key]
+    except (TypeError, KeyError):
+        out = list(mimc_constants(seed, p, R))
+        try:
+            _constants_cache[key] = out
+        except TypeError:
+            pass
+        return out
+
+
+def constants_list(seed=DEFAULT_SEED, p=SNARK_SCALAR_FIELD, R=DEFAULT_ROUNDS):
+    """:func:`_constants_list` with the defaults."""
+    return _constants_list(seed, p, R)
 
 
 def mimc(x, k, seed=DEFAULT_SEED, p=SNARK_SCALAR_FIELD, e=DEFAULT_EXPONENT,

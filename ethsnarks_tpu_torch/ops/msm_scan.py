@@ -138,7 +138,8 @@ def msm_tensor(points, digits, c, g2=False, combine='double_add',
     return combine_windows(wins, c, g2, combine)
 
 
-def _to_host(res, g2):
+def to_host(res, g2):
+    """(1, *point) tensor or None -> host affine point or None."""
     if res is None:
         return None
     return (curve.tensor_to_g2 if g2 else curve.tensor_to_g1)(res)[0]
@@ -146,12 +147,12 @@ def _to_host(res, g2):
 
 def msm_g1(points, digits, c, combine='double_add'):
     """G1 scan MSM -> host affine point (None = infinity)."""
-    return _to_host(msm_tensor(points, digits, c, False, combine), False)
+    return to_host(msm_tensor(points, digits, c, False, combine), False)
 
 
 def msm_g2(points, digits, c, combine='double_add'):
     """G2 scan MSM -> host affine (Fq2, Fq2) point or None."""
-    return _to_host(msm_tensor(points, digits, c, True, combine), True)
+    return to_host(msm_tensor(points, digits, c, True, combine), True)
 
 
 def msm_g1_chunked(points, digits, c, chunk=512):

@@ -83,20 +83,31 @@ class NttDomain(object):
         """Natural -> bit-reversed, butterfly (u, v) -> (u + v, (u - v) w^j).
         x: (16, B*m)."""
         for s in range(self.k):
-            n = self.m >> s
-            x = x.reshape(NH, -1, n)
-            u, v = x[:, :, :n // 2], x[:, :, n // 2:]
-            tw = self.stage_twiddles(series, s)[:, None, :]
-            x = torch.cat([Fr.add(u, v), Fr.mul(Fr.sub(u, v), tw)], dim=2)
-        return x.reshape(NH, -1)
+            x = dif_stage(x, self.stage_twiddles(series, s), self.m >> s)
+        return x
 
     def dit(self, x, series):
         """Bit-reversed -> natural, butterfly (u, v) -> (u + v w^j, u - v w^j).
         x: (16, B*m)."""
         for s in range(self.k - 1, -1, -1):
-            n = self.m >> s
-            x = x.reshape(NH, -1, n)
-            u, v = x[:, :, :n // 2], x[:, :, n // 2:]
-            t = Fr.mul(v, self.stage_twiddles(series, s)[:, None, :])
-            x = torch.cat([Fr.add(u, t), Fr.sub(u, t)], dim=2)
-        return x.reshape(NH, -1)
+            x = dit_stage(x, self.stage_twiddles(series, s), self.m >> s)
+        return x
+
+
+def dif_stage(x, tw, n):
+    """One DIF stage of butterfly span n on (16, B*n*j) blocks of n: (u, v)
+    -> (u + v, (u - v) tw), tw the (16, n/2) twiddles of the span."""
+    x = x.reshape(NH, -1, n)
+    u, v = x[:, :, :n // 2], x[:, :, n // 2:]
+    x = torch.cat([Fr.add(u, v), Fr.mul(Fr.sub(u, v), tw[:, None, :])],
+                  dim=2)
+    return x.reshape(NH, -1)
+
+
+def dit_stage(x, tw, n):
+    """One DIT stage of span n: (u, v) -> (u + v tw, u - v tw)."""
+    x = x.reshape(NH, -1, n)
+    u, v = x[:, :, :n // 2], x[:, :, n // 2:]
+    t = Fr.mul(v, tw[:, None, :])
+    x = torch.cat([Fr.add(u, t), Fr.sub(u, t)], dim=2)
+    return x.reshape(NH, -1)

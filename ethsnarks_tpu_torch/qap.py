@@ -40,6 +40,18 @@ def reduce_sums(t, max_terms):
     return t[:NH]
 
 
+def matvec(rows, cols, coeffs, max_terms, w_mont, width):
+    """COO rows (< width), columns and (16, nnz) Montgomery coefficients
+    times the (16, nv) Montgomery witness -> (16, width) Montgomery,
+    canonical; no row sums more than max_terms terms."""
+    sums = torch.zeros((NH + 2, width), dtype=torch.int64,
+                       device=w_mont.device)
+    if rows.numel():
+        vals = Fr.mul(coeffs, w_mont[:, cols])
+        sums[:NH].index_add_(1, rows, vals)
+    return reduce_sums(_ripple(sums), max_terms)
+
+
 def h_coefficients(domain, abc):
     """abc: (16, 3, m) Montgomery evaluations of A, B, C on the domain ->
     (16, m) Montgomery coefficients of H = (A B - C) / Z, bit-reversed."""
@@ -77,13 +89,7 @@ class QAP(object):
 
     def _matvec(self, name, w_mont):
         """Sparse rows . witness -> (16, m) Montgomery, canonical."""
-        rows, cols, coeffs, max_terms = self.coo[name]
-        sums = torch.zeros((NH + 2, self.domain_size), dtype=torch.int64,
-                           device=self.device)
-        if rows.numel():
-            vals = Fr.mul(coeffs, w_mont[:, cols])
-            sums[:NH].index_add_(1, rows, vals)
-        return reduce_sums(_ripple(sums), max_terms)
+        return matvec(*self.coo[name], w_mont, self.domain_size)
 
     def witness_map(self, w_words):
         """Canonical witness words (num_variables, 8) -> canonical H

@@ -268,7 +268,7 @@ def test_dense_and_scan_msm_on_card(card, g2):
     P = conv(pts, card)
     assert msm_dense.msm(P, digits, 8, g2, min_points=0) == (want, 'dense')
     for combine in msm_scan.COMBINES:
-        assert msm_scan._to_host(msm_scan.msm_tensor(
+        assert msm_scan.to_host(msm_scan.msm_tensor(
             P, digits, 8, g2, combine), g2) == want
 
 
@@ -282,6 +282,22 @@ def test_prove_fixture_msm_impls_on_card(card):
     for impl in ('fused', 'generic'):
         ctx = ProverContext(pk, cs, msm_impl=impl)
         assert ctx.prove(witness).to_json() == want
+
+
+def test_prove_fixture_on_mesh_of_card(card):
+    """Two virtual shards on the one card: the mesh prover's proof is the
+    committed proof.json."""
+    from ethsnarks_tpu_torch.parallel import make_mesh
+    with open(os.path.join(FIXTURE, "r1cs.json")) as fh:
+        cs = r1cs_from_dict(json.load(fh))
+    mesh = make_mesh(devices=[torch.device("cuda", 0)] * 2)
+    ctx = ProverContext(read_pk_binary(os.path.join(FIXTURE, "pk.bin")), cs,
+                        mesh=mesh)
+    proof = ctx.prove(witness_from_json(os.path.join(FIXTURE,
+                                                     "witness.json")))
+    with open(os.path.join(FIXTURE, "proof.json")) as fh:
+        assert proof.to_json() == fh.read()
+    assert set(ctx.last_routes.values()) == {'mesh'}
 
 
 def test_fixture_zk_key_and_blinded_proofs_on_card(card, tmp_path):

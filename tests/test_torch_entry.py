@@ -17,6 +17,7 @@ from ethsnarks_tpu.r1cs import ConstraintSystem as RefConstraintSystem
 from ethsnarks_tpu_torch import groth16, stubs
 from ethsnarks_tpu_torch.field import SNARK_SCALAR_FIELD
 from ethsnarks_tpu_torch.groth16 import ProverContext
+from ethsnarks_tpu_torch.parallel import make_mesh
 from ethsnarks_tpu_torch.r1cs import ConstraintSystem
 
 from torch_port_helpers import torch_threads  # noqa: F401
@@ -160,7 +161,11 @@ def test_context_call_forms(cycle):
     assert ProverContext(pk, pb, device='cpu', qap=ctx.qap).qap is ctx.qap
     with pytest.raises(ValueError):
         ProverContext(pk, pb, use_device_msm=False, device='cuda')
-    with pytest.raises(NotImplementedError, match='ROADMAP #11'):
+    # the sixth positional argument is the mesh: a parallel.mesh.Mesh
+    mesh = make_mesh(devices=['cpu'] * 2)
+    ctx = ProverContext(pk, pb, False, None, 'auto', mesh)
+    assert ctx.mesh is mesh and ctx.device.type == 'cpu'
+    with pytest.raises(TypeError):
         ProverContext(pk, pb, use_device_msm=False, mesh=object())
     with pytest.raises(TypeError):
         ProverContext(pk, pb, 'cpu')

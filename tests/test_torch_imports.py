@@ -1,7 +1,8 @@
 """The PyTorch/CUDA port imports neither JAX nor the JAX package.
 
-Every module of ``ethsnarks_tpu_torch/`` and ``chip_smoke.py`` is parsed
-(not imported) and each import statement is checked."""
+Every module of ``ethsnarks_tpu_torch/``, ``chip_smoke.py`` and
+``chip_mesh.py`` is parsed (not imported) and each import statement is
+checked."""
 import ast
 import os
 
@@ -12,7 +13,8 @@ PORT = os.path.join(ROOT, "ethsnarks_tpu_torch")
 
 
 def _sources():
-    out = [os.path.join(ROOT, "chip_smoke.py")]
+    out = [os.path.join(ROOT, "chip_smoke.py"),
+           os.path.join(ROOT, "chip_mesh.py")]
     for d, _, files in os.walk(PORT):
         out += [os.path.join(d, f) for f in sorted(files) if f.endswith(".py")]
     return sorted(os.path.relpath(p, ROOT) for p in out)
@@ -90,6 +92,24 @@ ENTRY_POINTS = [
 ]
 
 
+# the multi-device prover and the host EVM and contract modules
+MESH_AND_CONTRACTS = [
+    "ethsnarks_tpu_torch/evm_jubjub.py",
+    "ethsnarks_tpu_torch/evm_merkle.py",
+    "ethsnarks_tpu_torch/evm_snarkutils.py",
+    "ethsnarks_tpu_torch/mimc/contract.py",
+    "ethsnarks_tpu_torch/mimc/contract_sol.py",
+    "ethsnarks_tpu_torch/parallel/__init__.py",
+    "ethsnarks_tpu_torch/parallel/mesh.py",
+    "ethsnarks_tpu_torch/parallel/msm_red_sharded.py",
+    "ethsnarks_tpu_torch/parallel/msm_sharded.py",
+    "ethsnarks_tpu_torch/parallel/ntt_sharded.py",
+    "ethsnarks_tpu_torch/parallel/qap_sharded.py",
+    "ethsnarks_tpu_torch/poseidon/contract.py",
+    "ethsnarks_tpu_torch/poseidon/contract_sol.py",
+]
+
+
 def test_port_has_modules():
     assert len(_sources()) >= 15
 
@@ -111,6 +131,11 @@ def test_jubjub_modules_present(relpath):
 
 @pytest.mark.parametrize("relpath", ENTRY_POINTS)
 def test_entry_point_modules_present(relpath):
+    assert relpath in _sources()
+
+
+@pytest.mark.parametrize("relpath", MESH_AND_CONTRACTS)
+def test_mesh_and_contract_modules_present(relpath):
     assert relpath in _sources()
 
 
