@@ -203,7 +203,7 @@ from ethsnarks_tpu_torch.gadgets.jubjub import PureEdDSA_gadget
 from ethsnarks_tpu_torch.models import BatchMerkleMembership, \
     BatchPoseidonHash, BatchSha256, EdDSAVerify
 from ethsnarks_tpu_torch.ops import _build, curve, eddsa_ops, fold, \
-    int_probe, jubjub_ops, kernels, msm, msm_dense, msm_scan
+    int_probe, jubjub_ops, kernels, msm, msm_dense, msm_scan, witness_words
 from ethsnarks_tpu_torch.ops.batch_exp import BatchExp, C, N_WIN
 from ethsnarks_tpu_torch.ops.fp import Fq, Fr, words_to_h16, \
     ints_to_words_np, words_to_ints, h16_to_words
@@ -214,7 +214,7 @@ from ethsnarks_tpu_torch.parallel.msm_red_sharded import get_sharded_msm
 from ethsnarks_tpu_torch.parallel.msm_sharded import make_sharded_msm
 from ethsnarks_tpu_torch.pinocchio import CircuitReader
 from ethsnarks_tpu_torch.poseidon import poseidon
-from ethsnarks_tpu_torch.qap import h_coefficients
+from ethsnarks_tpu_torch.qap import WordWitnessMap, h_coefficients
 from ethsnarks_tpu_torch.r1cs import ConstraintSystem
 from ethsnarks_tpu_torch.serialization import read_pk_binary, \
     r1cs_from_dict, vk2json_file, witness_from_json, write_pk_binary
@@ -654,14 +654,16 @@ RED_KERNELS = [kernels.POINT_ADD[False], kernels.POINT_ADD[True],
                kernels.HORNER[False], kernels.HORNER[True]]
 
 
-def check_red_launches(launches, what):
-    """'red' proofs launch K1 and K3 of both groups and no other kernel
-    (K3 twice an MSM: the pairfold's tail and the window combine)."""
+def check_red_launches(launches, what, mesh=False):
+    """'red' proofs launch K1 and K3 of both groups (K3 twice an MSM: the
+    pairfold's tail and the window combine) and, on one card, the witness
+    map's K8 and K9; no other kernel."""
+    want = set(RED_KERNELS) | (set() if mesh else set(kernels.WITNESS))
     ran = {k for k in kernels.ALL if launches[k.name]}
-    if ran != set(RED_KERNELS):
+    if ran != want:
         fail("%s launched %s; expected %s" % (
             what, sorted(k.name for k in ran),
-            sorted(k.name for k in RED_KERNELS)))
+            sorted(k.name for k in want)))
 
 
 def phase_prove(ctx):
@@ -1654,6 +1656,84 @@ def input_changed(proof, k):
     return Proof(proof.A, proof.B, proof.C, inputs)
 
 
+def phase_witness_map(qap, values, what):
+    """The witness map of ``qap`` through K8 and K9 against the plain map
+    on the card, bit for bit, at the circuit's size; K8 and each K9 pass
+    against their plain versions, each timed (CUDA events, mean of 5 after
+    a warm-up; plain: one call) beside its bound -> (the kernels'
+    records, a summary)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wm = WordWitnessMap(qap)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    m, dom, k = qap.domain_size, wm.domain, wm.domain.k
+    w = torch.from_numpy(ints_to_words_np(values)).to(DEV)
+    kernels.reset_counts()
+    got = qap.witness_map(w)
+    torch.cuda.synchronize()
+    launches = {n: c for n, c in launch_counts().items() if c}
+    if launches != {kernels.CSR_MATVEC.name: 1,
+                    kernels.NTT_PASS.name: len(qap.word_map.domain.plan)}:
+        fail("%s: the witness map launched %s" % (what, launches))
+    plain_ms, want = cuda_ms(lambda: qap.witness_map_plain(w), warm=False)
+    if not torch.equal(got, want):
+        fail("%s: the kernels' witness map differs from the plain map"
+             % what)
+    map_ms, _ = cuda_ms(lambda: qap.witness_map(w))
+    nnz, n_rows = wm.cols.shape[0], wm.row_ptr.shape[0] - 1
+    k8_ms, abc = cuda_ms(lambda: wm.matvecs(w))
+    k8_plain_ms, abc_plain = cuda_ms(lambda: witness_words.csr_matvec_plain(
+        wm.row_ptr, wm.cols, wm.coeffs, w), warm=False)
+    if not torch.equal(abc, abc_plain):
+        fail("%s: K8 differs from its plain version" % what)
+    n_bytes, prods = witness_words.matvec_work(n_rows, nnz, w.shape[0])
+    b_ms, b_by = bound_ms(n_bytes, prods * FQ_MUL_IMAD)
+    k8 = dict(max_abs_err=0, ms=k8_ms, plain_ms=k8_plain_ms, bound_ms=b_ms,
+              bound_by=b_by, shape="%s: %d rows, %d terms" % (
+                  what, n_rows, nnz))
+    passes, x = [], abc
+    for (lo, t, g), steps in dom.plan:
+        args = (dom.tw_inv, dom.tw_fwd, dom.scale, dom.unscale, k)
+        ms, y = cuda_ms(lambda x=x: kernels.ntt_pass(x, *args, lo, t, g,
+                                                     steps))
+        p_ms, y_plain = cuda_ms(lambda x=x: witness_words.ntt_pass_plain(
+            x, *args, lo, t, steps), warm=False)
+        if not torch.equal(y, y_plain):
+            fail("%s: K9 pass %s differs from its plain version"
+                 % (what, (lo, t, g, steps)))
+        n_bytes, prods = witness_words.pass_work(k, lo, t, steps,
+                                                 x.shape[0] // m)
+        b_ms, b_by = bound_ms(n_bytes, prods * FQ_MUL_IMAD)
+        passes.append(dict(range=[lo, t, g], steps=steps, vectors=x.shape[0]
+                           // m, ms=ms, plain_ms=p_ms, bound_ms=b_ms,
+                           bound_by=b_by, products=prods))
+        x = y
+    if not torch.equal(x, got):
+        fail("%s: the K9 passes one by one differ from the map" % what)
+    k9_ms = sum(p["ms"] for p in passes)
+    butterflies = 7 * (m // 2) * k
+    k9 = dict(max_abs_err=0, ms=k9_ms,
+              plain_ms=sum(p["plain_ms"] for p in passes),
+              bound_ms=sum(p["bound_ms"] for p in passes),
+              bound_by="operations" if all(p["bound_by"] == "operations"
+                                           for p in passes) else "mixed",
+              shape="%s: the %d passes of one map, m = 2^%d"
+              % (what, len(passes), k), other_shapes=passes)
+    summary = dict(m=m, build_s=t_build, map_ms=map_ms, plain_map_ms=plain_ms,
+                   k8_ms=k8_ms,
+                   k9_ms=k9_ms, butterflies_per_s=butterflies / k9_ms * 1e3,
+                   launches=launches)
+    log("  %s witness map on K8 + K9: %.4f ms (plain %.1f ms), equal; K8 "
+        "%.4f ms (bound %.4f, plain %.1f), K9 passes %s; %.3e butterflies/s;"
+        " CSR and word planes built in %.3f s"
+        % (what, map_ms, plain_ms, k8_ms, k8["bound_ms"], k8_plain_ms,
+           json.dumps([[p["range"], p["steps"], round(p["ms"], 4),
+                        round(p["bound_ms"], 4)] for p in passes]),
+           summary["butterflies_per_s"], t_build))
+    return {kernels.CSR_MATVEC.name: k8, kernels.NTT_PASS.name: k9}, summary
+
+
 def phase_merkle():
     """setup -> proofs of every msm_impl -> both verifiers on the flagship,
     BatchMerkleMembership(29, MERKLE_PROOFS), on bench_merkle's data."""
@@ -1692,6 +1772,8 @@ def phase_merkle():
             bench_merkle.N_LEAVES, t_tree, t_witness, model.trace_seconds,
             depth, n_proofs, t_sat))
     kp, t_setup, setup_launches = checked_setup(cs, FULL_LOG, "the flagship")
+    wm_records, wm_summary = phase_witness_map(kp.qap, cs.values,
+                                               "the flagship")
     proofs, runs, launches = prove_every_impl(kp, cs, "the flagship")
     t0 = time.perf_counter()
     for rep, proof in enumerate(proofs):
@@ -1721,7 +1803,8 @@ def phase_merkle():
             kp, cs, proofs[0], list(range(1 << (n_cards.bit_length() - 1))))
     mesh["evm_path"] = merkle_path_evm(tree, n_proofs)
     return {"constraints": cs.num_constraints, "m": kp.qap.domain_size,
-            "entry": entry, "mesh": mesh,
+            "entry": entry, "mesh": mesh, "witness_map": wm_summary,
+            "witness_kernels": wm_records,
             "build_seconds": t_build, "tree_seconds": t_tree,
             "witness_seconds": t_witness,
             "trace_seconds": model.trace_seconds,
@@ -1751,7 +1834,7 @@ def phase_merkle_mesh(kp, cs, proof, devices):
     got = ctx.prove(cs.values)
     dt = time.perf_counter() - t0
     launches = launch_counts()
-    check_red_launches(launches, "the flagship's mesh proof")
+    check_red_launches(launches, "the flagship's mesh proof", mesh=True)
     if got.to_json() != proof.to_json():
         fail("the flagship's mesh proof differs from its 'red' proof")
     t0 = time.perf_counter()
@@ -2188,6 +2271,8 @@ def phase_poseidon():
         "%.1f s" % (n, t_witness, n, t_host, t_sat))
     kp, t_setup, setup_launches = checked_setup(
         cs, POSEIDON_LOG, "the Poseidon circuit")
+    _, wm_summary = phase_witness_map(kp.qap, cs.values,
+                                      "the Poseidon circuit")
     proofs, runs, launches = prove_every_impl(kp, cs, "the Poseidon circuit")
     t0 = time.perf_counter()
     if proofs[0].input != model.digests():
@@ -2206,7 +2291,7 @@ def phase_poseidon():
             "setup_seconds": t_setup, "setup_profile": kp.profile,
             "setup_launches": setup_launches, "proofs": runs,
             "prove_launches": launches, "verify_seconds": t_verify,
-            "host_peak_rss_gb": host_rss_gb()}
+            "witness_map": wm_summary, "host_peak_rss_gb": host_rss_gb()}
 
 
 # ---------------------------------------------------------------- phase 11
@@ -2421,6 +2506,7 @@ def main():
     card_state("after phase 6")
     entry = phase_entry_points()
     merkle = phase_merkle()
+    rec.update(merkle.pop("witness_kernels"))
     sha = phase_sha256()
     pos = phase_poseidon()
     ed = phase_eddsa()

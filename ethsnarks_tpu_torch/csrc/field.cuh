@@ -1,8 +1,11 @@
-// BN254 base field Fq for the Hopper kernels.
+// BN254 base field Fq and scalar field Fr for the Hopper kernels.
 //
-// An element is 8 little-endian 32-bit words of its Montgomery residue
-// x * 2^256 mod q: the layout of the reference's binary proving key and of
-// the port's point tensors (ethsnarks_tpu_torch/ops/fp.py).
+// An element is 8 little-endian 32-bit words of a residue mod q (Fq) or r
+// (Fr).  Fq values are Montgomery residues x * 2^256 mod q: the layout of
+// the reference's binary proving key and of the port's point tensors
+// (ethsnarks_tpu_torch/ops/fp.py).  The PTX blocks below are written once
+// for a modulus p and instantiated for q and for r: r < q, so every bound
+// stated for q holds for r (r < 2^254 and 4r < 2^256 too).
 //
 // Replaces the TPU field core ethsnarks_tpu/ops/fp_red.py (12-bit x 22
 // signed digits, shaped by the v5e's 32-bit vector lanes).
@@ -45,7 +48,9 @@ struct alignas(16) fq {
     uint32_t w[8];
 };
 
-// q = 0x30644e72...d87cfd47 and 2q, as PTX moves into the words q0..q7.
+// The modulus p (or 2p) of a block sits in the registers q0..q7, whatever
+// the field.  q = 0x30644e72...d87cfd47 and 2q, r = 0x30644e72...f0000001
+// and 2r, as PTX moves into those words.
 #define ESN_MOV_Q                                                              \
     "mov.u32 q0, 0xd87cfd47;\n\tmov.u32 q1, 0x3c208c16;\n\t"                   \
     "mov.u32 q2, 0x6871ca8d;\n\tmov.u32 q3, 0x97816a91;\n\t"                   \
@@ -56,6 +61,19 @@ struct alignas(16) fq {
     "mov.u32 q2, 0xd0e3951a;\n\tmov.u32 q3, 0x2f02d522;\n\t"                   \
     "mov.u32 q4, 0x0302b0bb;\n\tmov.u32 q5, 0x70a08b6d;\n\t"                   \
     "mov.u32 q6, 0xc2634053;\n\tmov.u32 q7, 0x60c89ce5;\n\t"
+#define ESN_MOV_R                                                              \
+    "mov.u32 q0, 0xf0000001;\n\tmov.u32 q1, 0x43e1f593;\n\t"                   \
+    "mov.u32 q2, 0x79b97091;\n\tmov.u32 q3, 0x2833e848;\n\t"                   \
+    "mov.u32 q4, 0x8181585d;\n\tmov.u32 q5, 0xb85045b6;\n\t"                   \
+    "mov.u32 q6, 0xe131a029;\n\tmov.u32 q7, 0x30644e72;\n\t"
+#define ESN_MOV_2R                                                             \
+    "mov.u32 q0, 0xe0000002;\n\tmov.u32 q1, 0x87c3eb27;\n\t"                   \
+    "mov.u32 q2, 0xf372e122;\n\tmov.u32 q3, 0x5067d090;\n\t"                   \
+    "mov.u32 q4, 0x0302b0ba;\n\tmov.u32 q5, 0x70a08b6d;\n\t"                   \
+    "mov.u32 q6, 0xc2634053;\n\tmov.u32 q7, 0x60c89ce5;\n\t"
+// -p^-1 mod 2^32
+#define ESN_NINV_Q "0xe4866389"
+#define ESN_NINV_R "0xefffffff"
 
 // Operands of the two-input blocks: %0-%7 the result, %8-%15 a, %16-%23 b.
 #define ESN_OUT8(x) "=r"(x.w[0]), "=r"(x.w[1]), "=r"(x.w[2]), "=r"(x.w[3]), \
@@ -100,12 +118,12 @@ struct alignas(16) fq {
     "madc.hi.cc.u32 " #O "7, %14, " B ", " #O "7;\n\t"                         \
     "addc.u32 " #E "7, " #E "7, 0;\n\t"
 
-// The reduction of a row: m = E[0] (-q^-1) mod 2^32, then E + O 2^32 +=
-// m q (odd words of q into O, even words into E), after which E[0] = 0.
+// The reduction of a row: m = E[0] (-p^-1) mod 2^32, then E + O 2^32 +=
+// m p (odd words of p into O, even words into E), after which E[0] = 0.
 // Neither chain carries out of the state's nine words: the state stays
-// below 3q 2^32 + 3q < 2^288.
-#define ESN_REDC(E, O)                                                         \
-    "mul.lo.u32 m, " #E "0, 0xe4866389;\n\t"                                   \
+// below 3p 2^32 + 3p < 2^288.
+#define ESN_REDC(E, O, NINV)                                                   \
+    "mul.lo.u32 m, " #E "0, " NINV ";\n\t"                                     \
     "mad.lo.cc.u32 " #O "0, m, q1, " #O "0;\n\t"                               \
     "madc.hi.cc.u32 " #O "1, m, q1, " #O "1;\n\t"                              \
     "madc.lo.cc.u32 " #O "2, m, q3, " #O "2;\n\t"                              \
@@ -124,36 +142,36 @@ struct alignas(16) fq {
     "madc.hi.cc.u32 " #E "7, m, q6, " #E "7;\n\t"                              \
     "addc.u32 " #O "7, " #O "7, 0;\n\t"
 
-// a * b / 2^256 mod q for a, b < 2q; the result is < 2q.  After the last
+// a * b / 2^256 mod p for a, b < 2p; the result is < 2p.  After the last
 // row the state divided by 2^32 is e + o[1..7].
-#define ESN_FQ_MUL_PTX                                                         \
+#define ESN_MUL_PTX(MOV_P, NINV)                                               \
     "{\n\t.reg .u32 e<8>;\n\t.reg .u32 o<8>;\n\t"                            \
-    ".reg .u32 q<8>;\n\t.reg .u32 m;\n\t" ESN_MOV_Q                           \
-    ESN_MUL_FIRST("%16") ESN_REDC(e, o)                                        \
-    ESN_MUL_ROW(e, o, "%17") ESN_REDC(o, e)                                    \
-    ESN_MUL_ROW(o, e, "%18") ESN_REDC(e, o)                                    \
-    ESN_MUL_ROW(e, o, "%19") ESN_REDC(o, e)                                    \
-    ESN_MUL_ROW(o, e, "%20") ESN_REDC(e, o)                                    \
-    ESN_MUL_ROW(e, o, "%21") ESN_REDC(o, e)                                    \
-    ESN_MUL_ROW(o, e, "%22") ESN_REDC(e, o)                                    \
-    ESN_MUL_ROW(e, o, "%23") ESN_REDC(o, e)                                    \
+    ".reg .u32 q<8>;\n\t.reg .u32 m;\n\t" MOV_P                               \
+    ESN_MUL_FIRST("%16") ESN_REDC(e, o, NINV)                                  \
+    ESN_MUL_ROW(e, o, "%17") ESN_REDC(o, e, NINV)                              \
+    ESN_MUL_ROW(o, e, "%18") ESN_REDC(e, o, NINV)                              \
+    ESN_MUL_ROW(e, o, "%19") ESN_REDC(o, e, NINV)                              \
+    ESN_MUL_ROW(o, e, "%20") ESN_REDC(e, o, NINV)                              \
+    ESN_MUL_ROW(e, o, "%21") ESN_REDC(o, e, NINV)                              \
+    ESN_MUL_ROW(o, e, "%22") ESN_REDC(e, o, NINV)                              \
+    ESN_MUL_ROW(e, o, "%23") ESN_REDC(o, e, NINV)                              \
     "add.cc.u32 %0, e0, o1;\n\taddc.cc.u32 %1, e1, o2;\n\t"                    \
     "addc.cc.u32 %2, e2, o3;\n\taddc.cc.u32 %3, e3, o4;\n\t"                   \
     "addc.cc.u32 %4, e4, o5;\n\taddc.cc.u32 %5, e5, o6;\n\t"                   \
     "addc.cc.u32 %6, e6, o7;\n\taddc.u32 %7, e7, 0;\n\t}"
 
-// a + b for a, b < 2q: t = a + b < 4q < 2^256, less 2q unless that
+// a + b for a, b < 2p: t = a + b < 4p < 2^256, less 2p unless that
 // borrows.
-#define ESN_FQ_ADD_PTX                                                         \
+#define ESN_ADD_PTX(MOV_2P)                                                    \
     "{\n\t.reg .u32 t<8>;\n\t.reg .u32 d<8>;\n\t"                              \
-    ".reg .u32 q<8>;\n\t.reg .u32 m;\n\t.reg .pred p;\n\t" ESN_MOV_2Q          \
+    ".reg .u32 q<8>;\n\t.reg .u32 m;\n\t.reg .pred p;\n\t" MOV_2P              \
     "add.cc.u32 t0, %8, %16;\n\taddc.cc.u32 t1, %9, %17;\n\t"                  \
     "addc.cc.u32 t2, %10, %18;\n\taddc.cc.u32 t3, %11, %19;\n\t"               \
     "addc.cc.u32 t4, %12, %20;\n\taddc.cc.u32 t5, %13, %21;\n\t"               \
     "addc.cc.u32 t6, %14, %22;\n\taddc.u32 t7, %15, %23;\n\t"                  \
     ESN_SUB_SELECT
 
-// d = t - q (q<8> holds q or 2q); the result is t if that borrows, else d.
+// d = t - q<8> (p or 2p); the result is t if that borrows, else d.
 #define ESN_SUB_SELECT                                                         \
     "sub.cc.u32 d0, t0, q0;\n\tsubc.cc.u32 d1, t1, q1;\n\t"                    \
     "subc.cc.u32 d2, t2, q2;\n\tsubc.cc.u32 d3, t3, q3;\n\t"                   \
@@ -165,11 +183,11 @@ struct alignas(16) fq {
     "selp.b32 %4, t4, d4, p;\n\tselp.b32 %5, t5, d5, p;\n\t"                   \
     "selp.b32 %6, t6, d6, p;\n\tselp.b32 %7, t7, d7, p;\n\t}"
 
-// a - b for a, b < 2q: t = a - b, plus 2q if that borrowed (the carry out
+// a - b for a, b < 2p: t = a - b, plus 2p if that borrowed (the carry out
 // of the top word cancels the borrow).
-#define ESN_FQ_SUB_PTX                                                         \
+#define ESN_SUB_PTX(MOV_2P)                                                    \
     "{\n\t.reg .u32 t<8>;\n\t.reg .u32 d<8>;\n\t"                              \
-    ".reg .u32 q<8>;\n\t.reg .u32 m;\n\t" ESN_MOV_2Q                           \
+    ".reg .u32 q<8>;\n\t.reg .u32 m;\n\t" MOV_2P                               \
     "sub.cc.u32 t0, %8, %16;\n\tsubc.cc.u32 t1, %9, %17;\n\t"                  \
     "subc.cc.u32 t2, %10, %18;\n\tsubc.cc.u32 t3, %11, %19;\n\t"               \
     "subc.cc.u32 t4, %12, %20;\n\tsubc.cc.u32 t5, %13, %21;\n\t"               \
@@ -184,37 +202,55 @@ struct alignas(16) fq {
     "addc.cc.u32 %4, t4, d4;\n\taddc.cc.u32 %5, t5, d5;\n\t"                   \
     "addc.cc.u32 %6, t6, d6;\n\taddc.u32 %7, t7, d7;\n\t}"
 
-// a < 2q -> a mod q (operands %0-%7 the result, %8-%15 a).
-#define ESN_FQ_CANON_PTX                                                       \
+// a < 2p -> a mod p (operands %0-%7 the result, %8-%15 a).
+#define ESN_CANON_PTX(MOV_P)                                                   \
     "{\n\t.reg .u32 t<8>;\n\t.reg .u32 d<8>;\n\t"                              \
-    ".reg .u32 q<8>;\n\t.reg .u32 m;\n\t.reg .pred p;\n\t" ESN_MOV_Q           \
+    ".reg .u32 q<8>;\n\t.reg .u32 m;\n\t.reg .pred p;\n\t" MOV_P               \
     "mov.u32 t0, %8;\n\tmov.u32 t1, %9;\n\tmov.u32 t2, %10;\n\t"               \
     "mov.u32 t3, %11;\n\tmov.u32 t4, %12;\n\tmov.u32 t5, %13;\n\t"             \
     "mov.u32 t6, %14;\n\tmov.u32 t7, %15;\n\t" ESN_SUB_SELECT
 
-__device__ __forceinline__ fq fq_mul(const fq& a, const fq& b) {
-    fq r;
-    asm(ESN_FQ_MUL_PTX : ESN_OUT8(r) : ESN_IN8(a), ESN_IN8(b));
-    return r;
-}
+// The two instantiations.
+#define ESN_FQ_MUL_PTX ESN_MUL_PTX(ESN_MOV_Q, ESN_NINV_Q)
+#define ESN_FQ_ADD_PTX ESN_ADD_PTX(ESN_MOV_2Q)
+#define ESN_FQ_SUB_PTX ESN_SUB_PTX(ESN_MOV_2Q)
+#define ESN_FQ_CANON_PTX ESN_CANON_PTX(ESN_MOV_Q)
+#define ESN_FR_MUL_PTX ESN_MUL_PTX(ESN_MOV_R, ESN_NINV_R)
+#define ESN_FR_ADD_PTX ESN_ADD_PTX(ESN_MOV_2R)
+#define ESN_FR_SUB_PTX ESN_SUB_PTX(ESN_MOV_2R)
+#define ESN_FR_CANON_PTX ESN_CANON_PTX(ESN_MOV_R)
 
-__device__ __forceinline__ fq fq_add(const fq& a, const fq& b) {
-    fq r;
-    asm(ESN_FQ_ADD_PTX : ESN_OUT8(r) : ESN_IN8(a), ESN_IN8(b));
-    return r;
-}
+// T_mul, T_add, T_sub, T_canon for the element type T of one field F.
+#define ESN_FIELD_OPS(T, F)                                                    \
+    __device__ __forceinline__ T T##_mul(const T& a, const T& b) {             \
+        T r;                                                                   \
+        asm(ESN_##F##_MUL_PTX : ESN_OUT8(r) : ESN_IN8(a), ESN_IN8(b));         \
+        return r;                                                              \
+    }                                                                          \
+    __device__ __forceinline__ T T##_add(const T& a, const T& b) {             \
+        T r;                                                                   \
+        asm(ESN_##F##_ADD_PTX : ESN_OUT8(r) : ESN_IN8(a), ESN_IN8(b));         \
+        return r;                                                              \
+    }                                                                          \
+    __device__ __forceinline__ T T##_sub(const T& a, const T& b) {             \
+        T r;                                                                   \
+        asm(ESN_##F##_SUB_PTX : ESN_OUT8(r) : ESN_IN8(a), ESN_IN8(b));         \
+        return r;                                                              \
+    }                                                                          \
+    __device__ __forceinline__ T T##_canon(const T& a) {                       \
+        T r;                                                                   \
+        asm(ESN_##F##_CANON_PTX : ESN_OUT8(r) : ESN_IN8(a));                   \
+        return r;                                                              \
+    }
 
-__device__ __forceinline__ fq fq_sub(const fq& a, const fq& b) {
-    fq r;
-    asm(ESN_FQ_SUB_PTX : ESN_OUT8(r) : ESN_IN8(a), ESN_IN8(b));
-    return r;
-}
+// An Fr element: 8 words of a residue mod r (the witness map keeps plain
+// values in them and Montgomery forms only in its constants).
+struct alignas(16) fr {
+    uint32_t w[8];
+};
 
-__device__ __forceinline__ fq fq_canon(const fq& a) {
-    fq r;
-    asm(ESN_FQ_CANON_PTX : ESN_OUT8(r) : ESN_IN8(a));
-    return r;
-}
+ESN_FIELD_OPS(fq, FQ)
+ESN_FIELD_OPS(fr, FR)
 
 // R mod q (Montgomery one).
 __device__ __forceinline__ fq fq_one() {

@@ -1,13 +1,15 @@
 """Build and load the CUDA kernels on first use.
 
-Two libraries, each one ``nvcc`` run, started together when both are
+Three libraries, each one ``nvcc`` run, started together when they are
 missing:
 
 - ``msm_kernels`` from ``csrc/msm_kernels.cu``, which includes
   ``csrc/setup_kernels.cu`` and ``csrc/msm_fused_kernels.cu``: every point
   kernel (K1-K6);
 - ``probe_kernels`` from ``csrc/probe_kernels.cu``: the throughput probe
-  (K7) and the Fq product's latency chain (K7b).
+  (K7) and the Fq product's latency chain (K7b);
+- ``witness_kernels`` from ``csrc/witness_kernels.cu``: the witness map's
+  CSR mat-vec (K8) and transform pass (K9).
 
 Each source is compiled into a shared library with a plain C interface
 under ``build/ethsnarks_tpu_torch/`` at the repo root (git-ignored), named
@@ -59,6 +61,11 @@ LIBRARIES = {
         "esn_int_probe": [_INT, _VOID, _VOID, _VOID, _INT, _INT, _VOID],
         "esn_fq_chain": [_VOID, _VOID, _VOID, _INT, _INT, _VOID],
     },
+    "witness_kernels": {
+        "esn_csr_matvec_fr": [_VOID, _VOID, _VOID, _VOID, _VOID, _INT, _VOID],
+        "esn_ntt_pass_fr": [_VOID, _VOID, _VOID, _VOID, _VOID, _VOID, _INT,
+                            _INT, _INT, _INT, _INT, _INT, _VOID],
+    },
 }
 
 _libs = {}
@@ -109,7 +116,7 @@ def _compile(libs):
 
 
 def build():
-    """Compile the libraries not built yet and load both; returns
+    """Compile the libraries not built yet and load them all; returns
     {library: ctypes library}."""
     if len(_libs) < len(LIBRARIES):
         _compile([lib for lib in LIBRARIES

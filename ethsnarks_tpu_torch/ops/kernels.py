@@ -1,10 +1,11 @@
 """One wrapper per CUDA kernel: K1-K3 of ``csrc/msm_kernels.cu``, K4 of
-``csrc/setup_kernels.cu``, K5-K6 of ``csrc/msm_fused_kernels.cu`` and K7,
-K7b of ``csrc/probe_kernels.cu``.
+``csrc/setup_kernels.cu``, K5-K6 of ``csrc/msm_fused_kernels.cu``, K7,
+K7b of ``csrc/probe_kernels.cu`` and K8, K9 of ``csrc/witness_kernels.cu``.
 
 A wrapper checks dtype, shape and contiguity, then dispatches on where the
 tensors lie: on the CPU it runs the kernel's plain PyTorch twin
-(:mod:`.curve`, :mod:`.fold`, :mod:`.int_probe`), on a CUDA device it
+(:mod:`.curve`, :mod:`.fold`, :mod:`.int_probe`, :mod:`.witness_words`),
+on a CUDA device it
 launches the kernel on the current stream, raising if the launch reports
 an error.  There is no fallback from the card to the twin.  Each kernel
 keeps a launch count (``.launches``), raised by one per launch on the card
@@ -13,13 +14,14 @@ and nowhere else.
 
 import torch
 
-from . import curve, fold, int_probe as probe_ops
+from . import curve, fold, int_probe as probe_ops, witness_words
 from ._build import function
 
 MSM_SOURCE = "ethsnarks_tpu_torch/csrc/msm_kernels.cu"
 SETUP_SOURCE = "ethsnarks_tpu_torch/csrc/setup_kernels.cu"
 FUSED_SOURCE = "ethsnarks_tpu_torch/csrc/msm_fused_kernels.cu"
 PROBE_SOURCE = "ethsnarks_tpu_torch/csrc/probe_kernels.cu"
+WITNESS_SOURCE = "ethsnarks_tpu_torch/csrc/witness_kernels.cu"
 
 
 class Kernel(object):
@@ -103,13 +105,23 @@ INT_PROBE = Kernel("int_probe", "esn_int_probe", "tools/probe_vpu.py:25",
 # measures throughput only; this is the unit of K2's and K3's floor)
 FQ_CHAIN = Kernel("fq_chain", "esn_fq_chain", "tools/probe_vpu.py:25",
                   PROBE_SOURCE)
+# K8 and K9: the witness map, which the reference runs in XLA (no Pallas
+# kernel): its mat-vecs and its transforms' stages
+CSR_MATVEC = Kernel("csr_matvec_fr", "esn_csr_matvec_fr",
+                    "none (XLA: ethsnarks_tpu/qap.py:82 _matvec)",
+                    WITNESS_SOURCE)
+NTT_PASS = Kernel("ntt_pass_fr", "esn_ntt_pass_fr",
+                  "none (XLA: ethsnarks_tpu/ops/ntt.py:137 _dif, :171 _dit; "
+                  "ethsnarks_tpu/qap.py:98 _witness_map_params)",
+                  WITNESS_SOURCE)
 MSM = [POINT_ADD[False], POINT_ADD[True], POINT_DOUBLE[False],
        POINT_DOUBLE[True], HORNER[False], HORNER[True]]
 SETUP = [FIXED_BASE_MUL[False], FIXED_BASE_MUL[True]]
 FUSED = [BUCKET_FOLD[False], BUCKET_FOLD[True], SEG_SCAN[False],
          SEG_SCAN[True]]
 PROBE = [INT_PROBE, FQ_CHAIN]
-ALL = MSM + SETUP + FUSED + PROBE
+WITNESS = [CSR_MATVEC, NTT_PASS]
+ALL = MSM + SETUP + FUSED + PROBE + WITNESS
 
 # K2 and K3 run a team of lanes a point (csrc/curve.cuh): G1 a quarter
 # warp, G2 a warp
@@ -392,4 +404,79 @@ def fq_chain(x, y, iters):
     out = torch.empty_like(x)
     FQ_CHAIN.launch(x.data_ptr(), y.data_ptr(), out.data_ptr(), x.shape[0],
                     int(iters), _stream(x.device))
+    return out
+
+
+def _check_words(x, what, device=None):
+    if x.dtype != torch.int32 or x.dim() != 2 or x.shape[1] != 8 or \
+            not x.is_contiguous():
+        raise ValueError("%s: expected contiguous int32 (n, 8) words, got "
+                         "%s %s" % (what, x.dtype, tuple(x.shape)))
+    if device is not None and x.device != device:
+        raise ValueError("%s: on %s, expected %s" % (what, x.device, device))
+
+
+def csr_matvec(row_ptr, cols, coeffs, w):
+    """K8: out[r] = sum of the Montgomery products coeffs[j] w[cols[j]]
+    over j in [row_ptr[r], row_ptr[r + 1]), canonical (n_rows, 8) words.
+    row_ptr: int64 (n_rows + 1,); cols: int32 (nnz,), each below len(w)
+    (the kernel does not check them); coeffs: (nnz, 8) canonical words; w:
+    (nv, 8) canonical words."""
+    _check_words(w, "csr_matvec w")
+    dev = w.device
+    _check_words(coeffs, "csr_matvec coeffs", dev)
+    nnz = coeffs.shape[0]
+    if row_ptr.dtype != torch.int64 or row_ptr.dim() != 1 or \
+            not row_ptr.is_contiguous() or row_ptr.device != dev:
+        raise ValueError("csr_matvec: expected contiguous int64 row "
+                         "pointers on %s" % dev)
+    if cols.dtype != torch.int32 or tuple(cols.shape) != (nnz,) or \
+            not cols.is_contiguous() or cols.device != dev:
+        raise ValueError("csr_matvec: expected contiguous int32 (%d,) "
+                         "columns on %s" % (nnz, dev))
+    n_rows = row_ptr.shape[0] - 1
+    if not 0 <= n_rows < 1 << 31:
+        raise ValueError("csr_matvec: %d rows" % n_rows)
+    if not _on_card(w):
+        return witness_words.csr_matvec_plain(row_ptr, cols, coeffs, w)
+    out = torch.empty((n_rows, 8), dtype=torch.int32, device=dev)
+    CSR_MATVEC.launch(row_ptr.data_ptr(), cols.data_ptr(), coeffs.data_ptr(),
+                      w.data_ptr(), out.data_ptr(), n_rows, _stream(dev))
+    return out
+
+
+def ntt_pass(x, tw_inv, tw_fwd, scale, unscale, k, lo, t, g, steps):
+    """K9: one pass of the witness map's transforms over the (B * 2^k, 8)
+    words ``x`` of B stacked vectors (B = 3 with ``COMBINE``, which leaves
+    one): the ``steps`` of :mod:`.witness_words` on index bits [lo, lo +
+    t), in tiles of 2^(t + g) elements (:func:`.witness_words.ntt_ranges`).
+    tw_inv, tw_fwd: (2^(k-1), 8) Montgomery twiddle series; scale, unscale:
+    (2^k, 8) Montgomery planes.  Returns new canonical words."""
+    ww = witness_words
+    _check_words(x, "ntt_pass x")
+    dev, m = x.device, 1 << k
+    for p, n, what in ((tw_inv, m // 2, "tw_inv"), (tw_fwd, m // 2, "tw_fwd"),
+                       (scale, m, "scale"), (unscale, m, "unscale")):
+        _check_words(p, "ntt_pass " + what, dev)
+        if p.shape[0] != n:
+            raise ValueError("ntt_pass: %s of %d elements, expected %d"
+                             % (what, p.shape[0], n))
+    b = 3 if steps & ww.COMBINE else 1
+    if not 1 <= k <= 28 or x.shape[0] % m or x.shape[0] // m not in (b, 3):
+        raise ValueError("ntt_pass: %d words for m = 2^%d and steps %d"
+                         % (x.shape[0], k, steps))
+    if not (1 <= t and t + g <= ww.TILE_LOG and lo + t <= k and g >= 0
+            and (g <= lo if lo else t + g <= k)):
+        raise ValueError("ntt_pass: bad range lo=%d t=%d g=%d for k=%d"
+                         % (lo, t, g, k))
+    if not 0 < steps < 64:
+        raise ValueError("ntt_pass: steps %d" % steps)
+    if not _on_card(x):
+        return ww.ntt_pass_plain(x, tw_inv, tw_fwd, scale, unscale, k, lo, t,
+                                 steps)
+    groups = x.shape[0] // m // b
+    out = torch.empty((groups * m, 8), dtype=torch.int32, device=dev)
+    NTT_PASS.launch(x.data_ptr(), out.data_ptr(), tw_inv.data_ptr(),
+                    tw_fwd.data_ptr(), scale.data_ptr(), unscale.data_ptr(),
+                    k, lo, t, g, groups, steps, _stream(dev))
     return out

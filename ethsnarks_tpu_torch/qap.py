@@ -9,14 +9,21 @@ modular reduction), one batched 3-in-1 inverse transform, the coset scale,
 one batched forward transform, (A*B - C) / Z on the coset, and one more
 inverse transform: the H coefficients come out in bit-reversed order,
 which is how the proving key stores its H query.
+
+On a CUDA device the map runs in two hand-written kernels on 8 x 32-bit
+words instead (:class:`WordWitnessMap`, ``csrc/witness_kernels.cu``): a
+QAP compiled for a card dispatches to them by its device type.  The plain
+map stays for every other device and is what the tests hold them to.
 """
 
 import numpy as np
 import torch
 
 from .field import SNARK_SCALAR_FIELD
-from .ops.fp import Fr, NH, _ripple, words_to_h16, h16_to_words
+from .ops import kernels
+from .ops.fp import Fr, MONT_R, NH, _ripple, words_to_h16, h16_to_words
 from .ops.ntt import NttDomain
+from .ops.witness_words import TILE_LOG, csr_layout, pass_plan
 
 P = SNARK_SCALAR_FIELD
 
@@ -66,9 +73,71 @@ def h_coefficients(domain, abc):
     return Fr.mul(y, domain.coset_unscale_m_inv_bitrev)
 
 
+class WordDomain(object):
+    """An :class:`.ops.ntt.NttDomain`'s twiddle series and coset planes as
+    Fr words, and the K9 passes of the H chain on them
+    (:func:`.ops.witness_words.pass_plan`)."""
+
+    def __init__(self, dom, tile_log=TILE_LOG):
+        self.k = dom.k
+        self.tw_inv = h16_to_words(dom.tw_inv)
+        self.tw_fwd = h16_to_words(dom.tw_fwd)
+        self.scale = h16_to_words(dom.coset_scale_m_inv_bitrev)
+        # g^-i / m times R / Z(coset): A B / R - C / R in, H out
+        z_coset = (pow(dom.coset_gen, dom.m, P) - 1) % P
+        self.unscale = h16_to_words(Fr.mul(
+            dom.coset_unscale_m_inv_bitrev,
+            Fr.const_mont(pow(z_coset, -1, P) * MONT_R, dom.device)))
+        self.plan = pass_plan(self.k, tile_log)
+
+    def h_coefficients(self, abc):
+        """abc: (3m, 8) plain canonical words of A, B, C on the domain
+        (stacked) -> (m, 8) plain canonical words of H's coefficients,
+        bit-reversed: :func:`h_coefficients` on words."""
+        for (lo, t, g), steps in self.plan:
+            abc = kernels.ntt_pass(abc, self.tw_inv, self.tw_fwd, self.scale,
+                                   self.unscale, self.k, lo, t, g, steps)
+        return abc
+
+
+class WordWitnessMap(object):
+    """The witness map of one :class:`QAP` through K8 (the three mat-vecs
+    on the stacked CSR matrices) and K9 (:class:`WordDomain`), built
+    once."""
+
+    def __init__(self, qap, tile_log=TILE_LOG):
+        dev, ni = qap.device, qap.num_inputs
+        row_ptr, cols, order = csr_layout(qap.coo_host, qap.domain_size,
+                                          qap.num_constraints, ni)
+        coeffs = torch.cat(
+            [h16_to_words(qap.coo['a'][2]),
+             h16_to_words(Fr.const_mont(1, dev)).expand(ni + 1, 8),
+             h16_to_words(qap.coo['b'][2]), h16_to_words(qap.coo['c'][2])])
+        self.row_ptr = torch.from_numpy(row_ptr).to(dev)
+        self.cols = torch.from_numpy(cols.astype(np.int32)).to(dev)
+        self.coeffs = coeffs[torch.from_numpy(order).to(dev)]
+        self.num_variables = qap.num_variables
+        self.domain = WordDomain(qap.domain, tile_log)
+
+    def matvecs(self, w_words):
+        """[A w with the input rows; B w; C w]: (3m, 8) plain words."""
+        if w_words.shape[0] != self.num_variables:
+            # K8 reads w[cols[j]] unchecked
+            raise ValueError("witness of %d values for %d variables"
+                             % (w_words.shape[0], self.num_variables))
+        return kernels.csr_matvec(self.row_ptr, self.cols, self.coeffs,
+                                  w_words)
+
+    def __call__(self, w_words):
+        """Canonical witness words (num_variables, 8) -> canonical H
+        coefficient words (m, 8), bit-reversed."""
+        return self.domain.h_coefficients(self.matvecs(w_words))
+
+
 class QAP(object):
     """Compiled form of a constraint system on one device: COO matrices
-    (Montgomery coefficients) and the NTT domain."""
+    (Montgomery coefficients) and the NTT domain; on a CUDA device also the
+    kernels' :class:`WordWitnessMap`."""
 
     def __init__(self, cs, device):
         self.device = torch.device(device)
@@ -86,6 +155,8 @@ class QAP(object):
                 torch.from_numpy(rows).to(self.device),
                 torch.from_numpy(cols).to(self.device),
                 Fr.ints_to_h16(coeffs, self.device, mont=True), max_terms)
+        self.word_map = WordWitnessMap(self) \
+            if self.device.type == 'cuda' else None
 
     def _matvec(self, name, w_mont):
         """Sparse rows . witness -> (16, m) Montgomery, canonical."""
@@ -93,7 +164,15 @@ class QAP(object):
 
     def witness_map(self, w_words):
         """Canonical witness words (num_variables, 8) -> canonical H
-        coefficient words (m, 8), bit-reversed order."""
+        coefficient words (m, 8), bit-reversed order: the kernels on a
+        CUDA device, :meth:`witness_map_plain` elsewhere."""
+        if self.word_map is not None:
+            return self.word_map(w_words)
+        return self.witness_map_plain(w_words)
+
+    def witness_map_plain(self, w_words):
+        """The witness map in plain torch on 16-bit half-limbs, on any
+        device."""
         w_mont = Fr.to_mont(words_to_h16(w_words))
         aA = self._matvec('a', w_mont)
         n = self.num_constraints

@@ -21,11 +21,15 @@ from ethsnarks_tpu_torch import probe
 from ethsnarks_tpu_torch.ops import curve, fold, int_probe, kernels, msm, \
     msm_dense, msm_scan
 from ethsnarks_tpu_torch.ops.batch_exp import BatchExp, C, N_WIN
-from ethsnarks_tpu_torch.ops.fp import ints_to_words_np
+from ethsnarks_tpu_torch.ops import witness_words
+from ethsnarks_tpu_torch.ops.fp import Fr, h16_to_words, ints_to_words_np, \
+    words_to_h16
+from ethsnarks_tpu_torch.ops.ntt import NttDomain
+from ethsnarks_tpu_torch.qap import QAP, WordDomain
 from ethsnarks_tpu_torch.serialization import read_pk_binary, \
     r1cs_from_dict, witness_from_json, write_pk_binary
 
-from torch_port_helpers import carry_edge_values
+from torch_port_helpers import carry_edge_values, random_constraint_system
 
 pytestmark = pytest.mark.cuda
 
@@ -454,3 +458,67 @@ def test_stubs_cycle_on_card(card, tmp_path):
     assert not stubs.stub_verify(vk_json,
                                  proof_json.replace('"0x2a"', '"0x2b"'))
     assert stubs.stub_test_proof_verify(circuit())
+
+
+def _witness_case(case):
+    if case == 'fixture':
+        with open(os.path.join(FIXTURE, "r1cs.json")) as fh:
+            cs = r1cs_from_dict(json.load(fh))
+        return cs, witness_from_json(os.path.join(FIXTURE, "witness.json"))
+    # m = 2^16: 64 inputs, a row of 300 terms, four K9 passes with columns
+    return random_constraint_system(1 << 16, 64, 5000, 300, seed=7)
+
+
+@pytest.mark.parametrize('case', ['fixture', 'random_2^16'])
+def test_witness_map_kernels_match_plain(card, case):
+    """K8 and K9 (the map a QAP on the card dispatches to) against the
+    plain map on the same card, bit for bit, and K8 against its plain
+    version; one K8 launch and one K9 launch a planned pass."""
+    cs, w = _witness_case(case)
+    qap = QAP(cs, card)
+    words = torch.from_numpy(ints_to_words_np(w)).to(card)
+    kernels.reset_counts()
+    got = qap.witness_map(words)
+    torch.cuda.synchronize()
+    assert (kernels.CSR_MATVEC.launches, kernels.NTT_PASS.launches) == \
+        (1, len(qap.word_map.domain.plan))
+    assert torch.equal(got, qap.witness_map_plain(words))
+    wm = qap.word_map
+    assert torch.equal(wm.matvecs(words), witness_words.csr_matvec_plain(
+        wm.row_ptr, wm.cols, wm.coeffs, words))
+
+
+def _random_words(n, device, seed):
+    """n canonical Fr words (below 2^252)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randint(-(1 << 31), 1 << 31, (n, 8), dtype=torch.int32,
+                      device=device, generator=gen)
+    x[:, 7] &= 0x0FFFFFFF
+    return x
+
+
+@pytest.mark.parametrize('k', [16, 19, 20])
+def test_ntt_passes_match_domain_transforms(card, k):
+    """K9's DIF and DIT passes on B = 3 stacked vectors against
+    NttDomain.dif / .dit, and DIT after DIF is m times the identity."""
+    m = 1 << k
+    dom = NttDomain(m, card)
+    wd = WordDomain(dom)
+    ranges = witness_words.ntt_ranges(k)
+    x = _random_words(3 * m, card, k)
+
+    def passes(x, order, step):
+        for lo, t, g in order:
+            x = kernels.ntt_pass(x, wd.tw_inv, wd.tw_fwd, wd.scale,
+                                 wd.unscale, k, lo, t, g, step)
+        return x
+
+    dif = passes(x, ranges[::-1], witness_words.DIF_IN)
+    assert torch.equal(dif, h16_to_words(dom.dif(words_to_h16(x),
+                                                 dom.tw_inv)))
+    dit = passes(x, ranges, witness_words.DIT)
+    assert torch.equal(dit, h16_to_words(dom.dit(words_to_h16(x),
+                                                 dom.tw_fwd)))
+    back = passes(dif, ranges, witness_words.DIT)
+    assert torch.equal(back, h16_to_words(Fr.mul(
+        words_to_h16(x), Fr.const_mont(m, card))))

@@ -1,6 +1,7 @@
 """The CUDA field core's inline PTX (ethsnarks_tpu_torch/csrc/field.cuh),
 run on the CPU by a small interpreter of the PTX it uses, against Python
-integers and the JAX package's BN254 modulus.
+integers and the JAX package's BN254 moduli: the blocks' Fq instantiation
+(q) and their Fr instantiation (r).
 
 The C preprocessor expands the header's PTX macros; each block is then
 executed instruction by instruction with the carry flag of the PTX ISA
@@ -8,9 +9,9 @@ executed instruction by instruction with the carry flag of the PTX ISA
 The interpreter fails on a carry read before it is set, on an input read
 after an output was written (outputs may share registers with inputs),
 and, in the product, on a carry dropped by an instruction without .cc.
-Inputs are the values that reach rare carries: 0, 1, q - 1, q, 2q - 1,
-q - 2^32, 2^255 mod q, values with all-ones low words, and random ones,
-all below 2q (the lazy-reduction range)."""
+Inputs are the values that reach rare carries: 0, 1, p - 1, p, 2p - 1,
+p - 2^32, 2^255 mod p, values with all-ones low words, and random ones,
+all below 2p (the lazy-reduction range), for p = q and p = r."""
 import ast
 import os
 import re
@@ -20,14 +21,16 @@ import subprocess
 import numpy as np
 import pytest
 
-from ethsnarks_tpu.bn254 import FIELD_MODULUS as Q
+from ethsnarks_tpu.bn254 import FIELD_MODULUS as Q, CURVE_ORDER as RMOD
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
                     "ethsnarks_tpu_torch", "csrc")
 M32 = (1 << 32) - 1
 R = 1 << 256
 BLOCKS = {"MUL": "ESN_FQ_MUL_PTX", "ADD": "ESN_FQ_ADD_PTX",
-          "SUB": "ESN_FQ_SUB_PTX", "CANON": "ESN_FQ_CANON_PTX"}
+          "SUB": "ESN_FQ_SUB_PTX", "CANON": "ESN_FQ_CANON_PTX",
+          "FR_MUL": "ESN_FR_MUL_PTX", "FR_ADD": "ESN_FR_ADD_PTX",
+          "FR_SUB": "ESN_FR_SUB_PTX", "FR_CANON": "ESN_FR_CANON_PTX"}
 
 
 @pytest.fixture(scope="module")
@@ -121,18 +124,18 @@ def _words(x):
     return [(x >> (32 * i)) & M32 for i in range(8)]
 
 
-def _values(seed, n_random):
+def _values(seed, n_random, p=Q):
     rng = np.random.default_rng(seed)
 
     def rand():
         return int.from_bytes(rng.bytes(32), "little")
 
-    vals = [0, 1, 2, Q - 1, Q - 2, Q, Q + 1, 2 * Q - 1, 2 * Q - 2,
-            Q - (1 << 32), (1 << 255) % Q, (1 << 254) - 1, 1 << 253,
-            2 * Q - (1 << 32)]
+    vals = [0, 1, 2, p - 1, p - 2, p, p + 1, 2 * p - 1, 2 * p - 2,
+            p - (1 << 32), (1 << 255) % p, (1 << 254) - 1, 1 << 253,
+            2 * p - (1 << 32)]
     for k in range(1, 8):
-        vals.append((rand() | ((1 << (32 * k)) - 1)) % (2 * Q))
-    vals += [rand() % (2 * Q) for _ in range(n_random)]
+        vals.append((rand() | ((1 << (32 * k)) - 1)) % (2 * p))
+    vals += [rand() % (2 * p) for _ in range(n_random)]
     return vals
 
 
@@ -162,3 +165,34 @@ def test_sum_and_difference_below_2q(ptx, block):
 def test_canonical_reduction(ptx):
     for a in _values(3, 64):
         assert run(ptx["CANON"], _words(a), strict=True) == a % Q
+
+
+def test_fr_product_is_montgomery_below_2r(ptx):
+    """The Fr instantiation on r's edge values, and at the lazy bound."""
+    assert RMOD < 1 << 254 and 4 * RMOD < R
+    rinv = pow(R, -1, RMOD)
+    vals = _values(4, 6, RMOD)
+    for a in vals:
+        for b in vals:
+            r = run(ptx["FR_MUL"], _words(a) + _words(b), strict=True)
+            assert r < 2 * RMOD and r % RMOD == a * b * rinv % RMOD, \
+                (hex(a), hex(b))
+    for a in range(2 * RMOD - 8, 2 * RMOD):
+        r = run(ptx["FR_MUL"], _words(a) + _words(2 * RMOD - 1), strict=True)
+        assert r < 2 * RMOD and r % RMOD == a * (2 * RMOD - 1) * rinv % RMOD
+
+
+@pytest.mark.parametrize("block", ["FR_ADD", "FR_SUB"])
+def test_fr_sum_and_difference_below_2r(ptx, block):
+    vals = _values(5, 6, RMOD)
+    for a in vals:
+        for b in vals:
+            r = run(ptx[block], _words(a) + _words(b),
+                    strict=block == "FR_ADD")
+            want = (a + b) % RMOD if block == "FR_ADD" else (a - b) % RMOD
+            assert r < 2 * RMOD and r % RMOD == want, (hex(a), hex(b))
+
+
+def test_fr_canonical_reduction(ptx):
+    for a in _values(6, 64, RMOD):
+        assert run(ptx["FR_CANON"], _words(a), strict=True) == a % RMOD

@@ -87,3 +87,36 @@ def ints_of(obj):
     if type(obj).__name__ == 'Signature':
         return ints_of(obj.R) + (int(obj.s),)
     return tuple(int(c) for c in obj)
+
+
+def random_constraint_system(m, num_inputs, num_variables, max_terms, seed):
+    """A constraint system stand-in for :class:`ethsnarks_tpu_torch.qap.QAP`
+    on the domain m: m - num_inputs - 1 rows of 0-3 random terms in each of
+    A, B and C, row 0 of A with ``max_terms`` terms, coefficients and
+    witness values random below r with 0, 1 and r - 1 among them.  Returns
+    (system, witness ints)."""
+    from types import SimpleNamespace
+    from ethsnarks_tpu_torch.field import SNARK_SCALAR_FIELD as r
+    rng = np.random.default_rng(seed)
+    n = m - num_inputs - 1
+    edge = [0, 1, r - 1]
+
+    def values(k):
+        vals = rand_ints(k, r, int(rng.integers(1 << 30)))
+        for j in range(min(k, 3)):
+            vals[int(rng.integers(k))] = edge[j]
+        return vals
+
+    coo = {}
+    for name in 'abc':
+        counts = rng.integers(0, 4, n)
+        if name == 'a':
+            counts[0] = max_terms
+        rows = np.repeat(np.arange(n, dtype=np.int64), counts)
+        cols = rng.integers(0, num_variables, rows.size).astype(np.int64)
+        coo[name] = (rows, cols, values(rows.size))
+    w = [1] + values(num_variables - 1)
+    cs = SimpleNamespace(num_constraints=n, num_inputs=num_inputs,
+                         num_variables=num_variables,
+                         to_coo=lambda: {k: v for k, v in coo.items()})
+    return cs, w
